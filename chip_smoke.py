@@ -6,13 +6,17 @@
 Phases, each printing one JSON line:
 
 1. build   — compile the hand-written CUDA kernels (``checksum``,
-   ``snapshot``) from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a,
-   all sources at once; print the build seconds and the card.
+   ``snapshot``, ``xor_reduce``, ``gf_matmul``) from
+   ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, all sources at
+   once; print the build seconds and the card.
 2. kernels — every kernel against its plain PyTorch version on the card,
    bit-exact (integer results): random words, words near 2^32, zeros, ragged
    grids, dirty/clean prev tables, the main path's call shapes and one
-   (873, 1048576)-word matrix (the full-size state viewed as 4 MiB chunks).
-   CUDA-event medians of the kernel and the plain version on that matrix.
+   (873, 1048576)-word matrix (the full-size state viewed as 4 MiB chunks);
+   the parity kernels on G = 1..8 ragged rows, special and all 256
+   coefficients, the rs_matrix(4,2) encode and a decode inverse, and one
+   (4, largest stage) word matrix.  CUDA-event medians of each kernel and
+   its plain version at the full size.
 3. main    — the paper's Listing-2 loop through ``repro_torch.core.Checkpoint``
    on the full parameter set of h2o-danube-1.8b (configs/h2o_danube_1p8b.py:
    24 layers, d_model 2560, 32/8 heads of 80, d_ff 6912, vocab 32000,
@@ -25,9 +29,25 @@ Phases, each printing one JSON line:
 4. default — the default configuration (codec v1, node,pfs, PARTNER) on
    256 MiB of CUDA state: write, bit-exact restore, then one flipped payload
    byte in every tier's copy must raise the checksum-mismatch error.
+5. redundancy — the same h2o-danube-1.8b state split over 4 ranks as a
+   4-stage pipeline-parallel job holds it (rank 0: embedding + layers 0-5,
+   ranks 1-2: 6 layers each, rank 3: layers 18-23 + final norm + lm_head;
+   0.83-1.0 GB each, unequal), the ranks being SimWorld threads on the one
+   card, CRAFT_TIER_CHAIN=node with groups of 4: XOR writes 2 versions (2
+   layers updated between them), loses one node's tree and rebuilds it
+   through xor_reduce; RS (CRAFT_RS_PARITY=2) does the same losing two
+   nodes (gf_matmul syndrome + inverse); one rotted parity shard is
+   re-encoded by the scrubber, one rotted member file is repaired on read.
+   Every restore is torch.equal for every tensor.
+6. aft — aft_zone over the same 4 ranks, NON-SHRINKING, mem,node with RS
+   (m=2) and one RAM replica: ranks 1 and 2 die mid-loop and lose their node
+   trees; the final state must equal (torch.equal) the same loop run
+   without failures.
 
-Then the kernel table (JSON), the card's name and power limit, and the last
-line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
+Each path phase (main, redundancy, aft) sets the kernels' launch counts to
+0 before it runs and reads them after.  Then the kernel table (JSON), the
+card's name and power limit, and the last line ``{"ok": true, "device":
+{...}}``.  Any failure exits non-zero without
 that line; so does a machine without a CUDA card, or a directory without
 the port's sources.  Scratch files go to ``build/`` inside the checkout and
 are removed at the end.
@@ -55,6 +75,8 @@ FULL_ROWS, FULL_WPC = 873, CHUNK_BYTES // 4
 # h2o-danube-1.8b (configs/h2o_danube_1p8b.py)
 N_LAYERS, D_MODEL, N_HEADS, N_KV, HEAD_DIM, D_FF, VOCAB = (
     24, 2560, 32, 8, 80, 6912, 32000)
+N_STAGES = 4                     # ranks of the redundancy / aft phases
+DEVICE = "cuda"                  # the redundancy / aft phases' device
 
 
 def emit(obj) -> None:
@@ -101,12 +123,12 @@ def phase_build() -> dict:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.build_all(["checksum", "snapshot"])
-    _build.load("checksum")
-    _build.load("snapshot")
+    _build.build_all(_build.KERNELS)
+    for name in _build.KERNELS:
+        _build.load(name)
     secs = time.perf_counter() - t0
     ptxas = {}
-    for name in ("checksum", "snapshot"):
+    for name in _build.KERNELS:
         log = _build.BUILD_DIR / f"{name}.log"
         if log.exists():
             ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
@@ -229,15 +251,104 @@ def phase_kernels(results: dict) -> dict:
             lambda: snapshot_chunks_cuda(part, ck[:rows], with_hist=False))
     del full
     torch.cuda.empty_cache()
+    parity_kernels(cases, timing, rand_words)
     results["timing"] = timing
     return {"phase": "kernels", "cases": cases, "timing": timing}
 
 
-# ---------------------------------------------------------------- phase 3
-def danube_state(device, gen):
-    """The h2o-danube-1.8b parameter set as a flat bf16 state dict."""
+def gf_ops(matrix) -> int:
+    """Integer operations per word of a GF(2^8) matrix product: for each
+    non-zero coefficient c, one XOR per set bit and one 6-op xtime per bit
+    below the highest."""
+    return sum(bin(int(c)).count("1") + 6 * (int(c).bit_length() - 1)
+               for row in matrix for c in row if int(c))
+
+
+def parity_kernels(cases: list, timing: dict, rand_words) -> None:
+    """xor_reduce and gf_matmul against their plain versions, bit-exact,
+    then one full-size call each (4 members of the largest pipeline
+    stage's size) timed beside its plain version."""
+    import numpy as np
     import torch
 
+    from repro_torch.kernels.rs_erasure.kernel import gf_matmul_cuda
+    from repro_torch.kernels.rs_erasure.ops import gf_mat_inv, rs_matrix
+    from repro_torch.kernels.rs_erasure.ref import gf_matmul_ref
+    from repro_torch.kernels.xor_parity.kernel import xor_reduce_cuda
+    from repro_torch.kernels.xor_parity.ref import xor_reduce_ref
+
+    def gf_plain(words, mat):
+        return gf_matmul_ref(words.view(torch.uint8), mat).view(torch.int32)
+
+    def check(label, words, mat):
+        x = xor_reduce_cuda(words)
+        x_ref = xor_reduce_ref(words)
+        g = gf_matmul_cuda(words, mat)
+        g_ref = gf_plain(words, mat)
+        err = {"xor_reduce": _max_err(x, x_ref),
+               "gf_matmul": _max_err(g, g_ref)}
+        require(torch.equal(x, x_ref), f"xor_reduce != plain on {label}")
+        require(torch.equal(g, g_ref), f"gf_matmul != plain on {label}")
+        cases.append({"case": label, "shape": list(words.shape),
+                      "matrix": np.asarray(mat).shape, "max_abs_err": err})
+
+    rng = np.random.default_rng(SEED)
+    special = np.array([0, 1, 2, 0x80, 0xFF, 0x1B, 0x53, 0xCA], np.uint8)
+    for g in range(1, 9):
+        for n in (1, 5, 128, 4099, 70_001):            # ragged widths
+            w = rand_words(g, n)
+            w[g // 2] = 0                               # an all-zero row
+            mat = rng.integers(0, 256, (3, g), dtype=np.uint8)
+            mat[0] = special[:g]
+            check(f"g{g}-n{n}", w, mat)
+    every = rng.permutation(256).astype(np.uint8).reshape(32, 8)
+    check("every-coefficient", rand_words(8, 8192 + 3), every)
+    enc = rs_matrix(4, 2)
+    inv = gf_mat_inv(enc[np.ix_([0, 1], [1, 2])])      # lose members 1, 2
+    check("rs_matrix(4,2)", rand_words(4, 100_003), enc)
+    check("decode-inverse", rand_words(2, 100_003), inv)
+    flat = rand_words(1, 4 * 4099 + 1).view(-1)[1:]    # not 16-B aligned
+    check("unaligned", flat.view(4, 4099), enc)
+
+    n = stage_words()
+    full = rand_words(4, n)
+    check(f"full-4x{n}", full, enc)
+    synd = rand_words(2, n)
+    check(f"full-decode-2x{n}", synd, inv)
+    timing["xor_reduce"] = {
+        "shape": [4, n],
+        "ms": cuda_ms(lambda: xor_reduce_cuda(full)),
+        "plain_ms": cuda_ms(lambda: xor_reduce_ref(full), 3, 1),
+        "bytes": (4 + 1) * n * 4,
+        "ops": 3 * n,                       # one XOR per word and row after 0
+    }
+    timing["gf_matmul"] = {
+        "shape": [4, n], "matrix": enc.tolist(),
+        "ms": cuda_ms(lambda: gf_matmul_cuda(full, enc)),
+        "plain_ms": cuda_ms(lambda: gf_plain(full, enc), 3, 1),
+        "bytes": (4 + 2) * n * 4,
+        "ops": gf_ops(enc) * n,
+        "decode_ms": cuda_ms(lambda: gf_matmul_cuda(synd, inv)),
+        "decode_bound_ms": max((2 + 2) * n * 4 / HBM_BYTES_PER_S,
+                               gf_ops(inv) * n / INT_OPS_PER_S) * 1e3,
+    }
+    for name in ("xor_reduce", "gf_matmul"):
+        t = timing[name]
+        t["bound_ms"] = max(t["bytes"] / HBM_BYTES_PER_S,
+                            t["ops"] / INT_OPS_PER_S) * 1e3
+        t["bound_by"] = ("bytes" if t["bytes"] / HBM_BYTES_PER_S
+                         >= t["ops"] / INT_OPS_PER_S else "operations")
+        t["ops_bound_ms"] = t["ops"] / INT_OPS_PER_S * 1e3
+        t["GBps"] = t["bytes"] / (t["ms"] * 1e-3) / 1e9
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        t["max_abs_err"] = max(c["max_abs_err"].get(name, 0) for c in cases)
+    del full, synd
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 3
+def danube_shapes() -> dict:
+    """Shapes of the h2o-danube-1.8b parameter set, by state-dict key."""
     d, hd = D_MODEL, HEAD_DIM
     shapes = {"embed.embedding": (VOCAB, d), "final_ln": (d,),
               "lm_head": (d, VOCAB)}
@@ -250,25 +361,56 @@ def danube_state(device, gen):
             p + "ffn.w_gate": (d, D_FF), p + "ffn.w_up": (d, D_FF),
             p + "ffn.w_down": (D_FF, d),
         })
+    return shapes
+
+
+def danube_state(device, gen):
+    """The h2o-danube-1.8b parameter set as a flat bf16 state dict."""
+    import torch
+
     return {k: torch.randn(s, generator=gen, device=device,
                            dtype=torch.bfloat16) * 0.02
-            for k, s in shapes.items()}
+            for k, s in danube_shapes().items()}
+
+
+def stage_of(key: str) -> int:
+    """The pipeline stage (rank) holding ``key`` in a 4-stage split."""
+    if key.startswith("embed."):
+        return 0
+    if key.startswith("blocks."):
+        return int(key.split(".")[1]) // (N_LAYERS // N_STAGES)
+    return N_STAGES - 1                       # final_ln, lm_head
+
+
+def stage_words() -> int:
+    """Words of the largest stage's parameters, padded to the parity lane
+    (the shape the redundancy path gives the parity kernels)."""
+    per = [0] * N_STAGES
+    for k, shp in danube_shapes().items():
+        n = 1
+        for x in shp:
+            n *= x
+        per[stage_of(k)] += 2 * n
+    return -(-max(per) // 512) * 128
+
+
+def _wrappers() -> dict:
+    from repro_torch.kernels.checksum.kernel import checksum_rows
+    from repro_torch.kernels.rs_erasure.kernel import gf_matmul_cuda
+    from repro_torch.kernels.snapshot.kernel import snapshot_chunks_cuda
+    from repro_torch.kernels.xor_parity.kernel import xor_reduce_cuda
+
+    return {"checksum": checksum_rows, "snapshot": snapshot_chunks_cuda,
+            "xor_reduce": xor_reduce_cuda, "gf_matmul": gf_matmul_cuda}
 
 
 def _counts():
-    from repro_torch.kernels.checksum.kernel import checksum_rows
-    from repro_torch.kernels.snapshot.kernel import snapshot_chunks_cuda
-
-    return {"checksum": checksum_rows.launches,
-            "snapshot": snapshot_chunks_cuda.launches}
+    return {k: w.launches for k, w in _wrappers().items()}
 
 
 def _reset_counts() -> None:
-    from repro_torch.kernels.checksum.kernel import checksum_rows
-    from repro_torch.kernels.snapshot.kernel import snapshot_chunks_cuda
-
-    checksum_rows.launches = 0
-    snapshot_chunks_cuda.launches = 0
+    for w in _wrappers().values():
+        w.launches = 0
 
 
 def phase_main(results: dict, scratch: Path) -> dict:
@@ -434,6 +576,357 @@ def phase_default(scratch: Path) -> dict:
             "launches": _counts(), "flipped": flipped, "detected": detected}
 
 
+# ---------------------------------------------------------------- phase 5
+STAGES = ("read", "digest", "pad", "h2d", "kernel", "d2h", "write")
+
+
+def _split(m0: dict, m1: dict) -> dict:
+    """Seconds per parity stage (summed over the rank threads) between two
+    metrics snapshots: member/parity file reads, digests, host padding, H2D,
+    kernel, D2H and parity/member writes."""
+    return {k: m1.get(f"parity_seconds|stage={k}", 0.0)
+            - m0.get(f"parity_seconds|stage={k}", 0.0) for k in STAGES}
+
+
+def _delta(c0: dict, c1: dict) -> dict:
+    return {k: c1[k] - c0[k] for k in c1}
+
+
+def rss_gib() -> float:
+    """Peak resident set of this process so far, GiB."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def split_stages(state: dict) -> list:
+    stages = [{} for _ in range(N_STAGES)]
+    for k, t in state.items():
+        stages[stage_of(k)][k] = t
+    return stages
+
+
+def rank_comm(rank: int, size: int):
+    """A one-rank communicator standing for rank ``rank`` of ``size``, one
+    rank per node (restores and scrubs of a single rank)."""
+    from repro_torch.core import NullComm
+
+    class RankComm(NullComm):
+        @property
+        def rank(self):
+            return rank
+
+        @property
+        def size(self):
+            return size
+
+        def node_id(self):
+            return rank
+
+    return RankComm()
+
+
+def update_layers(stages: list, layers, seed: int) -> None:
+    """Add seeded noise, in place on the card, to every tensor of
+    ``layers`` (whichever stage holds them)."""
+    import torch
+
+    for stage in stages:
+        for i, (k, t) in enumerate(sorted(stage.items())):
+            if k.startswith("blocks.") and int(k.split(".")[1]) in layers:
+                g = torch.Generator(device=t.device).manual_seed(seed + i)
+                t.add_(torch.randn(t.shape, generator=g, device=t.device,
+                                   dtype=t.dtype) * 0.01)
+
+
+def _write_group(env, stages, versions: int) -> list:
+    """Every rank (a SimWorld thread) writes ``versions`` versions of its
+    stage; 2 layers change between versions.  Returns seconds per write."""
+    from repro_torch.core import Box, Checkpoint
+    from repro_torch.core.comm_sim import SimWorld
+
+    secs = []
+
+    def fn(comm):
+        cp = Checkpoint("stages", comm, env=env, device=DEVICE)
+        cp.add(f"stage-{comm.rank}", Box(stages[comm.rank]))
+        cp.commit()
+        for v in range(1, versions + 1):
+            if v > 1 and comm.rank == 0:
+                update_layers(stages, (5, 12 + v), SEED + v)
+            comm.barrier()
+            t0 = time.perf_counter()
+            cp.update_and_write(v)
+            comm.barrier()
+            if comm.rank == 0:
+                secs.append(time.perf_counter() - t0)
+        cp.close()
+
+    SimWorld(N_STAGES, procs_per_node=1, env=env).run(fn, timeout=900)
+    return secs
+
+
+def _restore_rank(env, stages, comm):
+    """Restore ``comm.rank``'s stage into zeroed tensors: (restored,
+    checkpoint, every tensor torch.equal)."""
+    import torch
+
+    from repro_torch.core import Box, Checkpoint
+
+    r = comm.rank
+    live = {k: torch.zeros_like(t) for k, t in stages[r].items()}
+    cp = Checkpoint("stages", comm, env=env, device=DEVICE)
+    cp.add(f"stage-{r}", Box(live))
+    cp.commit()
+    ok = cp.restart_if_needed()
+    cp.close()
+    torch_sync()
+    return ok, cp, all(torch.equal(live[k], stages[r][k]) for k in live)
+
+
+def _restore_group(env, stages) -> dict:
+    """Every rank (a SimWorld thread) restores; returns {rank: (restore
+    tier, version, every tensor torch.equal)}."""
+    from repro_torch.core.comm_sim import SimWorld
+
+    out = {}
+
+    def fn(comm):
+        ok, cp, same = _restore_rank(env, stages, comm)
+        out[comm.rank] = (cp.stats["restore_tier"] if ok else None,
+                          cp.version, same)
+
+    SimWorld(N_STAGES, procs_per_node=1, env=env).run(fn, timeout=900)
+    return out
+
+
+def _redundancy_env(root: Path, redundancy: str):
+    from repro_torch.core import CraftEnv
+
+    return CraftEnv.capture({
+        "CRAFT_NODE_CP_PATH": str(root / "node"),
+        "CRAFT_TIER_CHAIN": "node",
+        "CRAFT_NODE_REDUNDANCY": redundancy,
+        "CRAFT_XOR_GROUP_SIZE": str(N_STAGES),
+        "CRAFT_RS_PARITY": "2",
+        "CRAFT_METRICS": "1",
+    })
+
+
+def _lost_and_rebuilt(env, stages, lost) -> dict:
+    """Delete the ``lost`` nodes' trees, restore every rank; every tensor
+    must come back bit for bit."""
+    from repro_torch.core import metrics
+
+    for n in lost:
+        shutil.rmtree(env.node_cp_path / f"node-{n}")
+    c0, m0 = _counts(), metrics.snapshot()["counters"]
+    torch_sync()
+    t0 = time.perf_counter()
+    out = _restore_group(env, stages)
+    restore_s = time.perf_counter() - t0
+    c1, m1 = _counts(), metrics.snapshot()["counters"]
+    bad = [r for r, (tier, v, same) in out.items()
+           if tier != "node" or v != 2 or not same]
+    require(not bad, f"restore after losing nodes {lost} failed on ranks "
+                     f"{bad}: {out}")
+    return {"lost_nodes": list(lost), "restore_s": restore_s,
+            "restore_tier": {r: v[0] for r, v in out.items()},
+            "rebuild_split_s": _split(m0, m1), "rebuild_launches":
+            _delta(c0, c1), "bit_exact": True}
+
+
+def torch_sync() -> None:
+    import torch
+
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_redundancy(results: dict, scratch: Path) -> dict:
+    import torch
+
+    from repro_torch.core import metrics
+    from repro_torch.core.scrubber import corrupt_file
+
+    metrics.install()
+    dev = torch.device(DEVICE)
+    stages = split_stages(danube_state(dev, torch.Generator(
+        device=dev).manual_seed(SEED)))
+    sizes = [sum(t.numel() * 2 for t in s.values()) for s in stages]
+    torch_sync()
+    _reset_counts()
+    report = {"phase": "redundancy", "stage_bytes": sizes,
+              "tensors": [len(s) for s in stages]}
+    for redundancy, lost in (("XOR", (1,)), ("RS", (0, 1))):
+        root = scratch / redundancy.lower()
+        env = _redundancy_env(root, redundancy)
+        c0, m0 = _counts(), metrics.snapshot()["counters"]
+        secs = _write_group(env, stages, versions=2)
+        m1, c1 = metrics.snapshot()["counters"], _counts()
+        sub = {"write_s": secs, "encode_split_s": _split(m0, m1),
+               "encode_launches": _delta(c0, c1), "rss_gib": rss_gib()}
+        sub.update(_lost_and_rebuilt(env, stages, lost))
+        kernel = "xor_reduce" if redundancy == "XOR" else "gf_matmul"
+        want = 1 if redundancy == "XOR" else 2 * len(lost)
+        got = sub["rebuild_launches"][kernel]
+        require(got >= want, f"{redundancy} rebuild launched {kernel} "
+                             f"{got} times, expected {want}")
+        if redundancy == "RS":
+            # a rotted parity shard: the scrubber re-encodes it in place
+            shard = (env.node_cp_path / "node-2" / "rs-group-0" / "stages"
+                     / "v-2" / "parity-0.bin")
+            good = shard.read_bytes()
+            corrupt_file(shard, offset=12345)
+            ok, cp, _ = _restore_rank(env, stages, rank_comm(2, N_STAGES))
+            c0 = _counts()
+            scan = cp.scrubber.scan_once()
+            scan_launches = _delta(c0, _counts())
+            require(scan["parity_repaired"] == 1 and
+                    shard.read_bytes() == good,
+                    f"parity shard not re-encoded: {scan}")
+            # a rotted member file: the restore repairs it on read
+            member = sorted((env.node_cp_path / "node-3" / "stages" / "v-2")
+                            .rglob("*.bin"))[0]
+            corrupt_file(member)
+            c0 = _counts()
+            ok, cp, same = _restore_rank(env, stages,
+                                         rank_comm(3, N_STAGES))
+            require(ok and same and cp.stats["read_repairs"] == 1,
+                    f"repair-on-read: ok={ok} same={same} "
+                    f"read_repairs={cp.stats['read_repairs']}")
+            sub.update({"scrub": {k: scan[k] for k in (
+                "parity_checked", "parity_repaired", "corrupt_found",
+                "bytes_scanned")}, "scrub_launches": scan_launches,
+                "read_repairs": cp.stats["read_repairs"],
+                "read_repair_launches": _delta(c0, _counts())})
+        report[redundancy] = sub
+        shutil.rmtree(root, ignore_errors=True)
+    launches = _counts()
+    report["launches"] = launches
+    report["rss_gib"] = rss_gib()
+    for k in ("xor_reduce", "gf_matmul"):
+        require(launches[k] > 0, f"{k} never launched on the redundancy path")
+    results["redundancy_launches"] = launches
+    del stages
+    torch.cuda.empty_cache()
+    return report
+
+
+# ---------------------------------------------------------------- phase 6
+AFT_KILL_AT, AFT_LAST = 3, 4     # v-3's RS parity rows sit on nodes 3 and 0
+
+
+def phase_aft(results: dict, scratch: Path) -> dict:
+    import torch
+
+    from repro_torch.core import Box, Checkpoint, CraftEnv, aft_zone, metrics
+    from repro_torch.core.comm_sim import SimWorld
+
+    metrics.install()
+    dev = torch.device(DEVICE)
+    init = split_stages(danube_state(dev, torch.Generator(
+        device=dev).manual_seed(SEED + 7)))
+
+    def env_of(enable: str):
+        return CraftEnv.capture({
+            "CRAFT_ENABLE": enable,
+            "CRAFT_NODE_CP_PATH": str(scratch / "node"),
+            "CRAFT_MEM_SCRATCH": str(scratch / "shm"),
+            "CRAFT_TIER_CHAIN": "mem,node",
+            "CRAFT_NODE_REDUNDANCY": "RS",
+            "CRAFT_XOR_GROUP_SIZE": str(N_STAGES),
+            "CRAFT_RS_PARITY": "2",
+            "CRAFT_MEM_REPLICAS": "1",
+            "CRAFT_COMM_RECOVERY_POLICY": "NON-SHRINKING",
+            "CRAFT_METRICS": "1",
+        })
+
+    def run(kill: bool):
+        env = env_of("1" if kill else "0")
+        world = SimWorld(N_STAGES, procs_per_node=1, env=env)
+        final, restores, writes = {}, {}, []
+
+        def body(comm):
+            r = comm.rank
+            state = {k: v.clone() for k, v in init[r].items()}
+            it = Box(0)
+            cp = Checkpoint("aft", comm, env=env, device=DEVICE)
+            cp.add("it", it)
+            cp.add(f"stage-{r}", Box(state))
+            cp.commit()
+            c0 = _counts()
+            t0 = time.perf_counter()
+            if cp.restart_if_needed():
+                torch_sync()
+                restores[r] = {
+                    "epoch": comm.epoch,
+                    "replacement": comm.is_replacement(),
+                    "tier": cp.stats["restore_tier"], "version": cp.version,
+                    "seconds": time.perf_counter() - t0,
+                    "launches_in_window": _delta(c0, _counts()),
+                    "node_dir_rebuilt": (scratch / "node" / f"node-{r}"
+                                         / "aft" / f"v-{cp.version}").is_dir(),
+                }
+            keys = sorted(state)
+            while it.value < AFT_LAST:
+                it.value += 1
+                t = state[keys[(it.value * 7) % len(keys)]]
+                t.mul_(0.5).add_(float(it.value * (r + 1)))
+                comm.barrier()
+                t0 = time.perf_counter()
+                cp.update_and_write()
+                comm.barrier()
+                if r == 0:
+                    writes.append(time.perf_counter() - t0)
+                if kill and comm.epoch == 0 and r == 0 \
+                        and it.value == AFT_KILL_AT:
+                    world.kill(1)
+                    world.kill(2)
+                    for n in (1, 2):
+                        shutil.rmtree(scratch / "node" / f"node-{n}")
+                comm.barrier()
+            cp.close()
+            torch_sync()
+            final[r] = state
+            return comm.size
+
+        res = world.run(lambda c: aft_zone(c, body, env=env), timeout=900)
+        require(set(res.values()) == {N_STAGES}, f"aft run ended with {res}")
+        return final, restores, writes
+
+    torch_sync()
+    clean, _, _ = run(kill=False)
+    _reset_counts()
+    m0 = metrics.snapshot()["counters"]
+    t0 = time.perf_counter()
+    final, restores, writes = run(kill=True)
+    total_s = time.perf_counter() - t0
+    launches = _counts()
+    m1 = metrics.snapshot()["counters"]
+    bad = [(r, k) for r in range(N_STAGES) for k in clean[r]
+           if not torch.equal(final[r][k], clean[r][k])]
+    require(not bad, f"aft final state differs from the failure-free run: "
+                     f"{bad[:5]}")
+    tiers = {r: v["tier"] for r, v in restores.items()}
+    require(tiers == {r: "node" for r in range(N_STAGES)},
+            f"aft restore tiers {tiers}")
+    require(restores[1]["replacement"] and restores[1]["node_dir_rebuilt"]
+            and restores[1]["launches_in_window"]["gf_matmul"] > 0,
+            f"rank 1 was not rebuilt through RS: {restores[1]}")
+    results["aft_launches"] = launches
+    del init, clean, final
+    torch.cuda.empty_cache()
+    return {"phase": "aft", "write_s": writes, "total_s": total_s,
+            "restores": restores, "split_s": _split(m0, m1),
+            "launches": launches, "rss_gib": rss_gib(),
+            "final_equal_failure_free": True,
+            "note": "rank 1's RAM replica sat on rank 2, so v-3 is not "
+                    "whole in RAM: every rank restores from the node tier, "
+                    "ranks 1 and 2 through the RS rebuild (as the "
+                    "reference does)"}
+
+
 # ---------------------------------------------------------------- report
 KERNELS = [
     {"name": "checksum", "route": "cuda",
@@ -442,12 +935,23 @@ KERNELS = [
     {"name": "snapshot", "route": "cuda",
      "source": "src/repro_torch/kernels/csrc/snapshot.cu",
      "replaces": "src/repro/kernels/snapshot/kernel.py:77"},
+    {"name": "xor_reduce", "route": "cuda",
+     "source": "src/repro_torch/kernels/csrc/xor_parity.cu",
+     "replaces": "src/repro/kernels/xor_parity/kernel.py:37"},
+    {"name": "gf_matmul", "route": "cuda",
+     "source": "src/repro_torch/kernels/csrc/rs_erasure.cu",
+     "replaces": "src/repro/kernels/rs_erasure/kernel.py:81"},
 ]
+# the path phase whose launches the table reports for each kernel
+PATH_OF = {"checksum": "launches", "snapshot": "launches",
+           "xor_reduce": "redundancy_launches",
+           "gf_matmul": "redundancy_launches"}
+ALL_PHASES = ["build", "kernels", "main", "default", "redundancy", "aft"]
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,main,default",
+    ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma-separated subset (debugging); the default "
                          "runs every phase and prints the result lines")
     args = ap.parse_args(argv)
@@ -472,15 +976,23 @@ def main(argv=None) -> int:
             emit(phase_kernels(results))
         if "main" in phases:
             emit(phase_main(results, scratch / "main"))
+            shutil.rmtree(scratch / "main", ignore_errors=True)
         if "default" in phases:
             emit(phase_default(scratch / "default"))
+            shutil.rmtree(scratch / "default", ignore_errors=True)
+        if "redundancy" in phases:
+            emit(phase_redundancy(results, scratch / "redundancy"))
+            shutil.rmtree(scratch / "redundancy", ignore_errors=True)
+        if "aft" in phases:
+            emit(phase_aft(results, scratch / "aft"))
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    if phases != ["build", "kernels", "main", "default"]:
+    if phases != ALL_PHASES:
         return 0
-    launches = results["launches"]
+    launches = {k["name"]: results[PATH_OF[k["name"]]][k["name"]]
+                for k in KERNELS}
     missing = [k for k, n in launches.items() if n <= 0]
-    require(not missing, f"kernels never launched on the main path: {missing}")
+    require(not missing, f"kernels never launched on their path: {missing}")
     table = []
     for k in KERNELS:
         t = results["timing"][k["name"]]

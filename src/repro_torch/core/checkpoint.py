@@ -25,10 +25,9 @@ policy knobs (or probe ``need_checkpoint()``) instead of hand-rolled
 and back-compat.
 
 Tiers (``CRAFT_TIER_CHAIN``, fastest first): the optional **memory tier**
-(RAM shards replicated onto peer ranks; a later slice of the PyTorch port —
-this package refuses a chain that names it), the **node tier** (fast
-node-local storage with PARTNER redundancy — the SCR
-analog) when enabled, and every ``pfs_every``-th version additionally lands
+(RAM shards replicated onto peer ranks — rapid post-shrink recovery), the
+**node tier** (fast node-local storage with partner/XOR/RS redundancy — the
+SCR analog) when enabled, and every ``pfs_every``-th version additionally lands
 on the **PFS tier** (the durable parallel file system).  Reads drain the
 chain in order; writes go through to every chained tier (the memory tier is
 skipped for a version when its budget is exceeded — :class:`MemTierError` is
@@ -41,8 +40,11 @@ writer thread; with ``CRAFT_WRITE_ASYNC_ZERO_COPY=1`` even the snapshot runs
 on the writer thread and the caller must ``wait()`` before mutating the data.
 
 Device: ``Checkpoint(..., device="cuda")`` (the default) runs the codec's
-chunk digests on the card through the hand-written checksum kernel; pass
-``device="cpu"`` to digest on the host.  Tensors carry their own device.
+chunk digests, the memory tier's digests and the node tier's parity math on
+the card through the hand-written kernels; pass ``device="cpu"`` to run
+them on the host.  Tensors carry their own device.  A
+``node_store_factory(cp)`` builds the node tier from the checkpoint and
+reads ``cp.device`` for it.
 """
 from __future__ import annotations
 
@@ -179,17 +181,6 @@ class Checkpoint:
         self._committed = True
         if not self.env.enable:
             return
-        chain = self.env.tier_chain
-        if "mem" in chain:
-            raise CheckpointError(
-                f"CRAFT_TIER_CHAIN={','.join(chain)} names the memory tier, "
-                "which belongs to the AFT/memory-tier slice the PyTorch port "
-                "does not have yet; use node and/or pfs")
-        if self.env.scrub_every > 0:
-            raise CheckpointError(
-                f"CRAFT_SCRUB_EVERY={self.env.scrub_every} needs the "
-                "integrity scrubber of the AFT/memory-tier slice, which the "
-                "PyTorch port does not have yet; leave it at 0")
         # Arm the run-trace recorder (CRAFT_TRACE) and stamp the trace with
         # the knobs this checkpoint was captured under — the replayer
         # re-captures a CraftEnv from exactly this snapshot.
@@ -206,6 +197,7 @@ class Checkpoint:
             **trace.env_snapshot(self.env, payload_bytes=self.nbytes(),
                                  comm_size=self.comm.size),
         )
+        chain = self.env.tier_chain
         if "pfs" in chain:
             self._pfs = storage.VersionStore(
                 self.env.cp_path,
@@ -225,7 +217,13 @@ class Checkpoint:
                 name=self.name,
                 comm=self.comm,
                 env=self.env,
+                device=self.device,
             )
+        if "mem" in chain:
+            from repro_torch.core.mem_level import MemStore
+
+            self._mem = MemStore(self.name, self.comm, self.env,
+                                 device=self.device)
         if (
             self.env.write_async
             or self.env.write_async_zero_copy
@@ -271,9 +269,11 @@ class Checkpoint:
         )
         if self.env.cp_signal:
             self._policy.install_signal_handlers()
-        # no Scrubber yet (a later slice of the port): without it a failed
-        # tier read is not repaired in place and the restore moves on down
-        # the chain
+        from repro_torch.core.scrubber import Scrubber
+
+        # always built: repair-on-read works even when background scrubbing
+        # (CRAFT_SCRUB_EVERY) is off — the policy gates the idle slices
+        self._scrubber = Scrubber(self)
 
     # ----------------------------------------------------- nested (subCP())
     def sub_cp(self, child: "Checkpoint") -> None:
@@ -365,8 +365,9 @@ class Checkpoint:
 
     @property
     def scrubber(self):
-        """The integrity scrubber guarding this checkpoint's tiers — always
-        ``None`` in this package until the scrubber is ported."""
+        """The :class:`~repro_torch.core.scrubber.Scrubber` guarding this
+        checkpoint's tiers (``None`` before commit()/when disabled).  Call
+        ``scrubber.scan_once()`` for a synchronous full integrity pass."""
         return self._scrubber
 
     @property
@@ -402,6 +403,10 @@ class Checkpoint:
         # does not advance) — recompute those instead of pinning the cache
         if d.write or iteration is not None:
             self._decision_cache = (iteration, self._version, d)
+        if not d.write and self._scrubber is not None:
+            # skipped steps are the scrubber's idle windows (throttled by
+            # CRAFT_SCRUB_EVERY / CRAFT_SCRUB_BYTES_PER_S via the policy)
+            self._scrubber.opportunity()
         # Async stall watchdog: heartbeat gauge + one warning per job that
         # outlives CRAFT_IO_DEADLINE_S — only when some observer is armed.
         if self._writer is not None and (metrics.REGISTRY.enabled
@@ -782,19 +787,28 @@ class Checkpoint:
         )
         errors = []
         for store, slot, label in self._chained_stores():
-            # a failed tier read moves on down the chain (repair-on-read
-            # needs the scrubber of a later slice of the port)
-            err = self._read_from_store(store, slot, label, version, base_ctx)
-            if err is None:
-                return
-            errors.append(err)
+            for attempt in (0, 1):
+                err = self._read_from_store(
+                    store, slot, label, version, base_ctx)
+                if err is None:
+                    return
+                # Repair-on-read: a failed verification hands the tier to
+                # the scrubber (redundancy rebuild / peer-tier re-encode /
+                # quarantine) and the read retries once — a restore never
+                # falls through while a same-tier repair is possible.
+                if attempt == 0 and self._scrubber is not None \
+                        and self._scrubber.repair_version(store, slot, version):
+                    self.stats.inc("read_repairs")
+                    continue
+                errors.append(err)
+                break
         raise CheckpointError(
             f"could not restore {self.name!r} v-{version}: " + "; ".join(errors)
         )
 
     def _read_from_store(self, store, slot, label, version, base_ctx):
         """One tier's restore attempt; returns None on success, else the
-        error string to report."""
+        error string to report (the caller may repair and retry once)."""
         ts = time.perf_counter()
         try:
             # may trigger replica / partner / XOR / RS recovery; an
@@ -863,7 +877,13 @@ class Checkpoint:
             seconds=round(time.perf_counter() - ts, 6),
             read_bytes=self.stats["restore_read_bytes"],
         )
-        self._prime_delta_state(version)
+        if slot == "mem" and self.env.elastic_hydrate \
+                and hasattr(store, "rehydrate"):
+            # Replacement-rank hydration: a rank that restored from peer
+            # replicas re-seeds its own fabric slots so the redundancy
+            # group is whole again — all without touching disk.
+            self.stats.inc("mem_rehydrations", store.rehydrate(version))
+        self._prime_delta_state(version, restored_slot=slot)
         return None
 
     def _materialize_chain(self, store, vdir: Path, version: int) -> dict:
@@ -887,21 +907,29 @@ class Checkpoint:
             base_dirs[base] = Path(bdir)
         return base_dirs
 
-    def _prime_delta_state(self, version: int) -> None:
+    def _prime_delta_state(self, version: int, restored_slot: str) -> None:
         """Seed per-tier delta state after a restore so the *first* write of
         the resumed run can already skip clean chunks.
 
-        The chunk digests come from a header-only scan of each disk tier's
-        version directory.  Only tiers that locally hold ``version`` are
-        primed — a tier without it simply does a full write next time.
+        The chunk digests come from the memory tier's decoded shards when the
+        restore was served from RAM (no disk read at all); otherwise from a
+        header-only scan of each disk tier's version directory.  Only tiers
+        that locally hold ``version`` are primed — a tier without it simply
+        does a full write next time.
         """
         if not self.env.delta:
             return
+        mem_files = None
+        if restored_slot == "mem" and self._mem is not None:
+            mem_files = self._mem.chunk_digests(version, self.env.chunk_bytes)
         for store, slot, _ in self._chained_stores():
+            if slot == "mem":
+                continue
             vdir = Path(store.version_dir(version))
             if not vdir.is_dir():
                 continue
-            files = self._delta_files_from_dir(vdir)
+            files = mem_files if mem_files is not None \
+                else self._delta_files_from_dir(vdir)
             if not files:
                 continue
             self._delta_state[slot] = {

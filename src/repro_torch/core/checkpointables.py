@@ -140,7 +140,7 @@ class NdArrayCp(CpBase):
             raise CheckpointError(
                 f"shape mismatch: stored {loaded.shape} vs live {target.shape}"
             )
-        if storage.read_dtype_name(path) == target.dtype.name:
+        if storage.read_dtype_name(path, ctx) == target.dtype.name:
             # same stored dtype: copy the bits (a bfloat16 file arrives as
             # its uint16 view, which a value cast would mangle)
             loaded = loaded.view(target.dtype)
@@ -173,7 +173,8 @@ def _restored_tensor(host: np.ndarray, dtype_name: str, live,
                      ctx: IOContext):
     """Move a restored host array onto the live tensor: copied in place when
     shape and dtype match, else a new tensor on the live tensor's device
-    (``ctx.device`` when there is no live tensor)."""
+    (``ctx.device`` when there is no live tensor).  A read-only host array
+    (the memory tier's resident copy) is never aliased by the result."""
     t = storage.as_tensor(host, dtype_name)
     if isinstance(live, torch.Tensor):
         if tuple(live.shape) != tuple(t.shape):
@@ -184,8 +185,10 @@ def _restored_tensor(host: np.ndarray, dtype_name: str, live,
             with torch.no_grad():
                 live.copy_(t)
             return live
-        return t.to(live.device)
-    return t.to(ctx.device)
+    if not host.flags.writeable:
+        t = t.clone()
+    return t.to(live.device if isinstance(live, torch.Tensor)
+                else ctx.device)
 
 
 # --------------------------------------------------------------------------

@@ -65,6 +65,9 @@ class IOContext:
     # ``MemStore.read_ctx_overrides`` (payloads are digest-verified at
     # publish, so no re-verification happens on this path).
     array_cache: Optional[dict] = None
+    # The on-disk dtype names of the ``array_cache`` entries (same keys):
+    # bfloat16/fp8 arrays travel as same-width unsigned views.
+    array_dtypes: Optional[dict] = None
     # --- delta codec (on-disk format v2) -----------------------------------
     # Write side: ``delta_prev`` maps each file's manifest name to the chunk
     # manifest of the previous version on the *same tier*

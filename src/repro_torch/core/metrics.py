@@ -43,7 +43,9 @@ tolerant of dead ranks after an AFT recovery for free.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
+import time
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 __all__ = [
@@ -178,6 +180,16 @@ def observe(name: str, value: float, **labels) -> None:
 
 def enabled() -> bool:
     return REGISTRY.enabled
+
+
+@contextlib.contextmanager
+def timed(name: str, **labels):
+    """Add the wall seconds of the ``with`` block to counter ``name``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        REGISTRY.inc(name, time.perf_counter() - t0, **labels)
 
 
 def install() -> "MetricsRegistry":

@@ -8,7 +8,10 @@ data: *partner* (full copy on a neighbor) or *partner-XOR* (parity group).
 "Node-local" is the host-local SSD/ramdisk of each GPU host.  Here a node's
 storage is the directory ``<base>/node-<nid>/`` — in the test cluster all
 nodes share one filesystem, so cross-node reads stand in for the
-RDMA/collective transfers a real fleet would use.
+RDMA/collective transfers a real fleet would use.  The parity math and the
+member digests run on the store's ``device``: the hand-written
+``xor_reduce`` / ``gf_matmul`` / ``checksum`` CUDA kernels on a card (the
+payload bytes cross to it and back), their plain versions on the CPU.
 
 Redundancy policies (``CRAFT_NODE_REDUNDANCY``):
 
@@ -16,18 +19,27 @@ Redundancy policies (``CRAFT_NODE_REDUNDANCY``):
   * ``PARTNER`` — the node leader mirrors the node's version directory onto
     the next node (paper: "recover restart data from the failed node's
     neighbor").
-  * ``XOR`` / ``RS`` — parity groups over the ``xor_reduce`` and
-    ``gf_matmul`` kernels; not ported yet (the node-redundancy slice of the
-    port), so the store refuses them with a :class:`CheckpointError`.
+  * ``XOR``     — nodes form groups of ``CRAFT_XOR_GROUP_SIZE``; one member
+    (rotating with the version number, RAID-5 style) stores the XOR parity
+    of every member's payload; any single lost member is rebuilt from the
+    parity + survivors (SCR's partner-XOR level).
+  * ``RS``      — the same groups protected by an RS(k, m) erasure code
+    (``CRAFT_RS_PARITY`` parity buffers, rotating placement): any ``m``
+    simultaneously lost members rebuild bit-identically, and the parity
+    manifest's per-member/per-row kernel digests let the background
+    scrubber verify and repair rot (:mod:`repro_torch.core.erasure`).
 
 Restore goes through :meth:`NodeStore.materialize`, which transparently
-rebuilds a missing local version from the partner mirror before handing
-the directory to ``Checkpoint``.
+rebuilds a missing local version from the partner mirror or the parity group
+before handing the directory to ``Checkpoint``.
 
-``NodeStore`` is a :class:`~repro_torch.core.tiers.StorageTier`: the local store is
-a plain :class:`~repro_torch.core.storage.VersionStore`, and the mirror / parity
+``NodeStore`` is a :class:`~repro_torch.core.tiers.StorageTier`: the local
+store is a plain :class:`~repro_torch.core.storage.VersionStore`, and the
+mirror / parity
 side-trees reuse the same atomic tmp→rename and retention helpers from
-:mod:`repro_torch.core.tiers` instead of re-implementing them.
+:mod:`repro_torch.core.tiers` instead of re-implementing them.  XOR parity
+manifests additionally record the kernel Fletcher digest of every member's
+payload, so a reconstruction can tell a stale survivor from a valid one.
 """
 from __future__ import annotations
 
@@ -35,14 +47,12 @@ import json
 import shutil
 import time as _time
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional
 
-from repro_torch.core import metrics, storage, tiers
+from repro_torch.core import erasure, metrics, storage, tiers
 from repro_torch.core.cpbase import CheckpointError
 from repro_torch.core.tiers import StorageTier
-
-# Redundancy modes whose kernels belong to a later slice of the port.
-UNPORTED_REDUNDANCY = ("XOR", "RS")
+from repro_torch.kernels.xor_parity import ops as xor_ops
 
 
 def _node_geometry(comm):
@@ -64,18 +74,14 @@ class NodeStore(StorageTier):
 
     label = "node"
 
-    def __init__(self, base: Path, name: str, comm, env):
+    def __init__(self, base: Path, name: str, comm, env, device="cuda"):
         self.base = Path(base)
+        self.device = str(device)     # where parity math and digests run
         self.name = name
         self.comm = comm
         self.env = env
         self.redundancy = env.node_redundancy
-        if self.redundancy in UNPORTED_REDUNDANCY:
-            raise CheckpointError(
-                f"CRAFT_NODE_REDUNDANCY={self.redundancy} needs the "
-                "xor_reduce/gf_matmul kernels of the node-redundancy slice, "
-                "which the PyTorch port does not have yet; use LOCAL or "
-                "PARTNER")
+        self.group_size = max(1, env.xor_group_size)
         self.nid, self.n_nodes, self.is_leader = _node_geometry(comm)
         self._local = storage.VersionStore(
             self._node_dir(self.nid), name, keep_versions=env.keep_versions
@@ -89,6 +95,19 @@ class NodeStore(StorageTier):
         """Where ``owner_nid``'s partner mirror lives (on its neighbor node)."""
         holder = (owner_nid + 1) % self.n_nodes
         return self._node_dir(holder) / f"mirror-of-{owner_nid}" / self.name
+
+    def _group(self, nid: int) -> List[int]:
+        g0 = (nid // self.group_size) * self.group_size
+        return [n for n in range(g0, min(g0 + self.group_size, self.n_nodes))]
+
+    def _parity_holder(self, nid: int, version: int) -> int:
+        grp = self._group(nid)
+        return grp[version % len(grp)]
+
+    def _parity_root(self, nid: int, version: int) -> Path:
+        holder = self._parity_holder(nid, version)
+        g0 = self._group(nid)[0]
+        return self._node_dir(holder) / f"xor-group-{g0}" / self.name
 
     def _member_version_dir(self, member: int, version: int) -> Path:
         """Another node's v-<K> dir — path-only, no mkdir side effects."""
@@ -130,6 +149,12 @@ class NodeStore(StorageTier):
             if self.redundancy == "PARTNER" and self.n_nodes > 1:
                 self._chaos_check("replicate", path=staged)
                 self._publish_partner(version)
+            elif self.redundancy == "XOR":
+                self._chaos_check("replicate", path=staged)
+                self._publish_xor(version)
+            elif self.redundancy == "RS":
+                self._chaos_check("replicate", path=staged)
+                erasure.publish_rs(self, version)
         self.comm.barrier()          # redundancy data in place
         metrics.observe("publish_seconds", _time.perf_counter() - t0,
                         tier="node")
@@ -144,6 +169,31 @@ class NodeStore(StorageTier):
         tiers.atomic_publish_dir(tmp, root / tiers.version_dir_name(version))
         tiers.retire_version_dirs(root, self.env.keep_versions)
 
+    def _publish_xor(self, version: int) -> None:
+        # The parity holder's leader computes the group parity.
+        if self._parity_holder(self.nid, version) != self.nid:
+            return
+        group = self._group(self.nid)
+        payloads: Dict[int, bytes] = {}
+        manifest: Dict[str, dict] = {}
+        for member in group:
+            # same payload/manifest-entry definition as the RS path
+            payloads[member], manifest[str(member)] = erasure.collect_member(
+                self, member, version)
+        parity = xor_ops.parity_of_buffers([payloads[m] for m in group],
+                                           self.device)
+        del payloads
+        root = self._parity_root(self.nid, version)
+        with erasure.timed("write"):
+            tmp = root / tiers.staging_dir_name(version)
+            shutil.rmtree(tmp, ignore_errors=True)
+            tmp.mkdir(parents=True)
+            (tmp / "parity.bin").write_bytes(parity)
+            storage.write_json(tmp / "manifest.json", manifest)
+            tiers.atomic_publish_dir(tmp,
+                                     root / tiers.version_dir_name(version))
+            tiers.retire_version_dirs(root, self.env.keep_versions)
+
     # -- reading ----------------------------------------------------------------
     def meta(self) -> dict:
         """This node's local version metadata (manifest checks at restore)."""
@@ -155,6 +205,16 @@ class NodeStore(StorageTier):
         if self.redundancy == "PARTNER" and self.n_nodes > 1:
             for v, _ in tiers.list_version_dirs(self._mirror_root(self.nid)):
                 best = max(best, v)
+        elif self.redundancy == "XOR":
+            # any version whose parity manifest exists is recoverable
+            for holder in self._group(self.nid):
+                g0 = self._group(self.nid)[0]
+                root = self._node_dir(holder) / f"xor-group-{g0}" / self.name
+                for v, p in tiers.list_version_dirs(root):
+                    if (p / "manifest.json").exists():
+                        best = max(best, v)
+        elif self.redundancy == "RS":
+            best = max(best, erasure.latest_rs_version(self))
         # Elastic N→M: a version any peer node holds is restorable here too —
         # either shard-by-shard through aux_read_dirs or by whole-tree copy
         for root in self._peer_node_roots():
@@ -186,6 +246,10 @@ class NodeStore(StorageTier):
             recovered = None
             if self.redundancy == "PARTNER" and self.n_nodes > 1:
                 recovered = self._recover_partner(version)
+            elif self.redundancy == "XOR":
+                recovered = self._recover_xor(version)
+            elif self.redundancy == "RS":
+                recovered = erasure.recover_rs(self, version)
         except (OSError, CheckpointError, json.JSONDecodeError) as exc:
             raise CheckpointError(
                 f"node-tier recovery of {self.name} v-{version} failed: {exc}"
@@ -221,6 +285,38 @@ class NodeStore(StorageTier):
         shutil.copytree(src, dst)
         return dst
 
+    def _recover_xor(self, version: int) -> Optional[Path]:
+        root = self._parity_root(self.nid, version)
+        pdir = root / tiers.version_dir_name(version)
+        if not (pdir / "manifest.json").exists():
+            return None
+        manifest = storage.read_json(pdir / "manifest.json")
+        group = self._group(self.nid)
+        my_entry = manifest.get(str(self.nid))
+        if my_entry is None:
+            return None
+        survivors = []
+        for member in group:
+            if member == self.nid:
+                continue
+            # shared stale-survivor definition (erasure.read_member_payload):
+            # XOR can rebuild exactly one member, so an unreadable/stale
+            # survivor is fatal here, not merely "also lost" as under RS
+            payload = erasure.read_member_payload(
+                self, member, version, manifest[str(member)])
+            if payload is None:
+                raise CheckpointError(
+                    f"survivor node {member} payload unreadable, short or "
+                    "digest-mismatched (stale or corrupt survivor data)"
+                )
+            survivors.append(payload)
+        with erasure.timed("read"):
+            parity = (pdir / "parity.bin").read_bytes()
+        mine = xor_ops.reconstruct_member(parity, survivors, my_entry["size"],
+                                          self.device)
+        del parity, survivors
+        return erasure.write_member(self, version, my_entry, mine)
+
     def invalidate_all(self) -> None:
         """Wipe this checkpoint from *every* node tree, not just our own.
 
@@ -240,3 +336,23 @@ class NodeStore(StorageTier):
                 shutil.rmtree(parity / self.name, ignore_errors=True)
             for parity in p.glob("rs-group-*"):
                 shutil.rmtree(parity / self.name, ignore_errors=True)
+        if self.redundancy == "RS":
+            erasure.invalidate_rs(self)
+
+    # -- scrub hooks (core/scrubber.py) ---------------------------------------
+    def forget_version(self, version: int) -> None:
+        """Quarantine helper: drop the *local* copy of ``version`` so the
+        next materialize() rebuilds it from the redundancy peers."""
+        self._local.forget_version(version)
+
+    def scrub_redundancy(self, version: int) -> dict:
+        """Verify (and repair) this version's redundancy side-trees.
+
+        RS parity shards carry manifest digests and are re-encoded in place
+        when rotted (``erasure.scrub_rs``); the PARTNER mirror and XOR
+        parity have no self-digest to check here — their staleness is
+        caught at rebuild time against the member digests instead.
+        """
+        if self.redundancy == "RS":
+            return erasure.scrub_rs(self, version)
+        return {"bytes": 0, "checked": 0, "repaired": 0, "unrepairable": 0}

@@ -62,6 +62,7 @@ import os
 import shutil
 import threading
 import uuid
+import warnings
 import zlib
 from pathlib import Path
 from typing import List, Optional
@@ -159,7 +160,11 @@ def as_tensor(arr: np.ndarray, name: str) -> torch.Tensor:
         arr = arr.copy(order="C")       # 0-d array into a 1-d one)
     if arr.dtype.kind == "u" and arr.dtype.itemsize > 1:
         arr = arr.view(np.dtype(f"int{8 * arr.dtype.itemsize}"))
-    t = torch.from_numpy(arr)
+    with warnings.catch_warnings():
+        # a read-only array (the memory tier's resident copy) is only read
+        # through the tensor; callers that keep it clone it
+        warnings.filterwarnings("ignore", message=".*not writable.*")
+        t = torch.from_numpy(arr)
     return t if t.dtype == tdt else t.view(tdt)
 
 
@@ -541,11 +546,16 @@ def _write_array_v2(path: Path, arr: np.ndarray, dtype_name: str,
 
 def read_tensor(path: Path, ctx: IOContext) -> torch.Tensor:
     """:func:`read_array` as a CPU torch tensor of the stored dtype."""
-    return as_tensor(read_array(path, ctx), read_dtype_name(path))
+    return as_tensor(read_array(path, ctx), read_dtype_name(path, ctx))
 
 
-def read_dtype_name(path: Path) -> str:
-    """On-disk dtype name of an array file (header-only read)."""
+def read_dtype_name(path: Path, ctx: Optional[IOContext] = None) -> str:
+    """On-disk dtype name of an array file (header-only read), or of the
+    memory tier's decoded copy when ``ctx.array_dtypes`` holds it."""
+    if ctx is not None and ctx.array_dtypes is not None:
+        name = ctx.array_dtypes.get(str(path))
+        if name is not None:
+            return name
     with open(path, "rb") as fh:
         return _parse_stream_header(fh, path)["dtype"]
 

@@ -1,7 +1,9 @@
-"""Hand-written CUDA kernels for the checkpoint path.
+"""Hand-written CUDA kernels for the checkpoint and fault-tolerance paths.
 
 * ``checksum`` — per-row Fletcher digest (storage integrity, delta detector);
-* ``snapshot`` — fused per-chunk digest + dirty mask + nibble histogram.
+* ``snapshot`` — fused per-chunk digest + dirty mask + nibble histogram;
+* ``xor_parity`` — XOR over a parity group (node-tier XOR redundancy);
+* ``rs_erasure`` — GF(2^8) matrix product (node-tier RS encode/decode).
 
 Each subpackage has ``kernel.py`` (the CUDA wrapper, sources in ``csrc/``),
 ``ref.py`` (the plain PyTorch version) and ``ops.py`` (dispatch on the

@@ -30,9 +30,14 @@ SIGNATURES = {
     "checksum": {"craft_checksum_rows": [_VOIDP, _VOIDP, _LL, _LL, _VOIDP]},
     "snapshot": {"craft_snapshot": [_VOIDP, _VOIDP, _VOIDP, _LL, _LL, _INT,
                                     _VOIDP]},
+    "xor_parity": {"craft_xor_reduce": [_VOIDP, _VOIDP, _LL, _LL, _VOIDP]},
+    "rs_erasure": {"craft_gf_matmul": [_VOIDP, _VOIDP, _VOIDP, _INT, _INT,
+                                       _LL, _VOIDP]},
 }
+KERNELS = tuple(SIGNATURES)
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -116,6 +121,12 @@ def load(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib
     return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (rank threads launch concurrently)."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def check(rc: int, what: str) -> None:

@@ -10,13 +10,9 @@ for three integer operations); see the source for the block design.
 """
 from __future__ import annotations
 
-import threading
-
 import torch
 
 from repro_torch.kernels import _build
-
-_count_lock = threading.Lock()
 
 
 def _as_words(x: torch.Tensor, ndim: int, what: str) -> torch.Tensor:
@@ -46,8 +42,7 @@ def checksum_rows(words2: torch.Tensor) -> torch.Tensor:
         rc = lib.craft_checksum_rows(w.data_ptr(), out.data_ptr(), rows, wpc,
                                      stream)
     _build.check(rc, "checksum_rows")
-    with _count_lock:
-        checksum_rows.launches += 1
+    _build.count_launch(checksum_rows)
     return out
 
 

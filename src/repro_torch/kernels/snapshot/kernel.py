@@ -12,15 +12,11 @@ process.
 """
 from __future__ import annotations
 
-import threading
-
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.checksum.kernel import _as_words
 from repro_torch.kernels.snapshot.ref import META_COLS
-
-_count_lock = threading.Lock()
 
 
 def snapshot_chunks_cuda(words2: torch.Tensor, prev: torch.Tensor, *,
@@ -48,8 +44,7 @@ def snapshot_chunks_cuda(words2: torch.Tensor, prev: torch.Tensor, *,
         rc = lib.craft_snapshot(w.data_ptr(), p.data_ptr(), out.data_ptr(),
                                 n_chunks, wpc, int(bool(with_hist)), stream)
     _build.check(rc, "snapshot_chunks_cuda")
-    with _count_lock:
-        snapshot_chunks_cuda.launches += 1
+    _build.count_launch(snapshot_chunks_cuda)
     return out
 
 

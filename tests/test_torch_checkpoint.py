@@ -1,7 +1,7 @@
 """The port's Checkpoint: the paper's Listing-2 loop on CPU tensors, restart
 and resume, versions that cross between the port and the reference package
-on the default node,pfs PARTNER chain, the refusals of features that belong
-to later slices, and a package that never loads JAX."""
+on the default node,pfs PARTNER chain, the fault-tolerance settings on one
+rank, and a package that never loads JAX."""
 import shutil
 import subprocess
 import sys
@@ -289,7 +289,7 @@ def test_partner_mirror_serves_a_lost_node_copy(tmp_path):
     assert torch.equal(box.value, tensor_from_numpy(data, "cpu"))
 
 
-# ------------------------------------------------------------- refusals
+# ------------------------------------------------ fault-tolerance settings
 @pytest.mark.parametrize("extra,what", [
     ({"CRAFT_NODE_REDUNDANCY": "XOR"}, "XOR"),
     ({"CRAFT_NODE_REDUNDANCY": "RS"}, "RS"),
@@ -297,12 +297,31 @@ def test_partner_mirror_serves_a_lost_node_copy(tmp_path):
     ({"CRAFT_SCRUB_EVERY": "1"}, "scrubber"),
 ])
 def test_later_slices_are_refused(tmp_path, extra, what):
+    """The settings that the port's first slice refused with a
+    CheckpointError (node XOR/RS redundancy, the memory tier, the background
+    scrubber) now commit, write and restore bit-exactly."""
+    T.MemFabric.instance().reset()
     env = T.CraftEnv.capture(_envd(tmp_path, **extra))
-    cp = T.Checkpoint("r", env=env, device="cpu")
-    cp.add("a", np.zeros(4))
-    with pytest.raises(T.CheckpointError, match=what):
+    x = torch.arange(300, dtype=torch.float32)
+    with T.Checkpoint("r", env=env, device="cpu") as cp:
+        cp.add("a", T.Box(x.clone()))
         cp.commit()
-    cp.close()
+        assert cp.scrubber is not None
+        cp.update_and_write(1)
+    box = T.Box(torch.zeros(300))
+    with T.Checkpoint("r", env=env, device="cpu") as cp:
+        cp.add("a", box)
+        cp.commit()
+        assert cp.restart_if_needed()
+        tier = cp.stats["restore_tier"]
+        scan = cp.scrubber.scan_once()
+    T.MemFabric.instance().reset()
+    assert torch.equal(box.value, x)
+    assert scan["corrupt_found"] == 0 and scan["files_scanned"] > 0
+    assert tier == ("mem" if what == "memory tier" else "node")
+    side = {"XOR": "xor-group-0", "RS": "rs-group-0"}.get(what)
+    if side is not None:
+        assert (tmp_path / "node" / "node-0" / side / "r" / "v-1").is_dir()
 
 
 def test_cuda_is_the_default_device(tmp_path):
@@ -319,12 +338,15 @@ def test_cuda_is_the_default_device(tmp_path):
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    code = ("import sys, repro_torch.core, repro_torch.convert, "
-            "repro_torch.kernels.checksum.ops, "
-            "repro_torch.kernels.snapshot.ops; "
+    """Every module of the package, found by walking it, imports."""
+    code = ("import importlib, pkgutil, sys, repro_torch; "
+            "mods = [m.name for m in pkgutil.walk_packages("
+            "repro_torch.__path__, 'repro_torch.')]; "
+            "[importlib.import_module(m) for m in mods]; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
-            "m.startswith('repro.')); print(bad); sys.exit(1 if bad else 0)")
+            "m.startswith('repro.')); print(len(mods), bad); "
+            "sys.exit(1 if bad or len(mods) < 40 else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
