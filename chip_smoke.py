@@ -6,9 +6,10 @@
 Phases, each printing one JSON line:
 
 1. build   — compile the hand-written CUDA kernels (``checksum``,
-   ``snapshot``, ``xor_reduce``, ``gf_matmul``) from
-   ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, all sources at
-   once; print the build seconds and the card.
+   ``snapshot``, ``xor_reduce``, ``gf_matmul``, ``flash_attention``,
+   ``ssd_scan`` and ``s6_scan``: six sources, the two scans share one)
+   from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, all sources
+   at once; print the build seconds and the card.
 2. kernels — every kernel against its plain PyTorch version on the card,
    bit-exact (integer results): random words, words near 2^32, zeros, ragged
    grids, dirty/clean prev tables, the main path's call shapes and one
@@ -16,7 +17,16 @@ Phases, each printing one JSON line:
    the parity kernels on G = 1..8 ragged rows, special and all 256
    coefficients, the rs_matrix(4,2) encode and a decode inverse, and one
    (4, largest stage) word matrix.  CUDA-event medians of each kernel and
-   its plain version at the full size.
+   its plain version at the full size.  The LM kernels against their plain
+   versions within stated tolerances: flash_attention in float32 and
+   bfloat16 over GQA groups 1 and 4, D 64/80/128, ragged Lq/Lk, causal
+   with and without a window, kv_len, q_offset, Lq = 1 and fully masked
+   rows, then at the serving path's shapes (danube and zamba2 prefill at
+   B 2, L 8192; one decode step over each full cache) in float32 and
+   bfloat16, timed in bfloat16 beside the plain version and
+   scaled_dot_product_attention; ssd_scan and s6_scan at
+   L = 1, ragged L, h0 != 0 and dt = 0 steps, then at (2, 8192, 80, 64, 64)
+   and (2, 8192, 8192, 16), timed beside the plain chunked scan.
 3. main    — the paper's Listing-2 loop through ``repro_torch.core.Checkpoint``
    on the full parameter set of h2o-danube-1.8b (configs/h2o_danube_1p8b.py:
    24 layers, d_model 2560, 32/8 heads of 80, d_ff 6912, vocab 32000,
@@ -43,9 +53,18 @@ Phases, each printing one JSON line:
    (m=2) and one RAM replica: ranks 1 and 2 die mid-loop and lose their node
    trees; the final state must equal (torch.equal) the same loop run
    without failures.
+7. serve — ``repro_torch.launch.serve.run`` on h2o-danube-1.8b,
+   zamba2-2.7b and falcon-mamba-7b at full width (their CONFIGs) in bf16,
+   random weights from a seeded generator, one model on the card at a
+   time: batch 2, an 8192-token prompt (longer than danube's 4096 window)
+   and 32 greedy tokens uninterrupted; the same with a decode checkpoint
+   every 16 tokens (CRAFT_TIER_CHAIN=pfs, CRAFT_DEVICE_SNAPSHOT=1) failing
+   at token 20; the resumed run must restart at token 16 and give the
+   uninterrupted run's tokens, every logit finite.  Then a torch.profiler
+   trace of a few decode steps: the device's busy time and idle share.
 
-Each path phase (main, redundancy, aft) sets the kernels' launch counts to
-0 before it runs and reads them after.  Then the kernel table (JSON), the
+Each path phase (main, redundancy, aft, serve) sets the kernels' launch
+counts to 0 before it runs and reads them after.  Then the kernel table (JSON), the
 card's name and power limit, and the last line ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without
 that line; so does a machine without a CUDA card, or a directory without
@@ -55,6 +74,7 @@ are removed at the end.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import shutil
 import statistics
@@ -76,7 +96,7 @@ FULL_ROWS, FULL_WPC = 873, CHUNK_BYTES // 4
 N_LAYERS, D_MODEL, N_HEADS, N_KV, HEAD_DIM, D_FF, VOCAB = (
     24, 2560, 32, 8, 80, 6912, 32000)
 N_STAGES = 4                     # ranks of the redundancy / aft phases
-DEVICE = "cuda"                  # the redundancy / aft phases' device
+DEVICE = "cuda"                  # the redundancy / aft / serve phases' device
 
 
 def emit(obj) -> None:
@@ -252,6 +272,7 @@ def phase_kernels(results: dict) -> dict:
     del full
     torch.cuda.empty_cache()
     parity_kernels(cases, timing, rand_words)
+    lm_kernels(cases, timing)
     results["timing"] = timing
     return {"phase": "kernels", "cases": cases, "timing": timing}
 
@@ -346,6 +367,266 @@ def parity_kernels(cases: list, timing: dict, rand_words) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- LM kernels
+FLOPS_BF16 = 989e12              # H100 SXM dense bf16 tensor-core rate
+FLOPS_FP32 = 67e12               # H100 SXM non-tensor fp32 rate
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # as tests/test_kernels.py
+# (rtol, atol) of bf16 at the serving path's shapes: rows there attend to
+# up to 8224 keys, so |out| falls to about 0.02 and an atol of 2e-2 would
+# pass a dropped key tile; 2e-3 is about ten bf16 ulps of such a row
+ATTN_TOL_FULL = (2e-2, 2e-3)
+# the scans against the plain chunked scan: the two associate the float
+# sums in another order and the state compounds it over L steps
+SCAN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 3e-2)}
+SCAN_TOL_FULL = (1e-4, 1e-3)     # (rtol, atol), float32 over L = 8192
+
+
+def attn_pairs(lq: int, lk: int, causal: bool, window, q_offset: int,
+               kv_len) -> int:
+    """Unmasked (query, key) pairs of one head: the work attention must do."""
+    import numpy as np
+
+    qpos = q_offset + np.arange(lq, dtype=np.int64)
+    hi = np.full(lq, min(lk, lk if kv_len is None else kv_len), np.int64)
+    if causal:
+        hi = np.minimum(hi, qpos + 1)
+    lo = np.zeros(lq, np.int64)
+    if window:
+        lo = np.maximum(lo, qpos - window + 1)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def _err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def lm_kernels(cases: list, timing: dict) -> None:
+    """flash_attention, ssd_scan and s6_scan against their plain versions
+    on the card (small cases, then the serving path's full shapes), and
+    CUDA-event medians at the path's shapes beside the plain versions and,
+    for attention, PyTorch's scaled_dot_product_attention."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssm_scan.kernel import (
+        s6_scan_cuda, ssd_scan_cuda)
+    from repro_torch.kernels.ssm_scan.ref import (
+        chunked_scan_ref, s6_scan_ref, ssd_scan_ref)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    dt_name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    # ---- flash_attention: small cases, both dtypes
+    attn_err = 0.0
+    for case in [
+        # (b, hq, hkv, lq, lk, d, causal, window, q_offset, kv_len)
+        (1, 2, 2, 128, 128, 64, True, None, 0, None),    # group 1, D 64
+        (2, 8, 2, 100, 260, 80, True, None, 160, None),  # group 4, ragged
+        (1, 4, 1, 70, 70, 128, True, 16, 0, None),       # window, D 128
+        (2, 4, 4, 64, 200, 80, False, None, 0, 137),     # kv_len
+        (1, 8, 2, 1, 300, 80, True, None, 250, 251),     # Lq = 1, growing
+        (1, 8, 2, 1, 64, 80, False, None, 0, 40),        # Lq = 1, rolling
+        (1, 2, 2, 64, 64, 32, True, 8, 0, 4),            # fully masked rows
+        (1, 4, 1, 130, 130, 80, False, 32, 0, None),     # window, no causal
+    ]:
+        b, hq, hkv, lq, lk, d, causal, window, q_offset, kv_len = case
+        kw = dict(causal=causal, window=window, q_offset=q_offset,
+                  kv_len=kv_len)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn((b, lq, hq, d), dtype).transpose(1, 2)
+            k, v = randn((b, hkv, lk, d), dtype), randn((b, hkv, lk, d), dtype)
+            out, ref = flash_attention_cuda(q, k, v, **kw), attention_ref(
+                q, k, v, **kw)
+            torch.cuda.synchronize()
+            tol = ATTN_TOL[dt_name[dtype]]
+            err = _err(out, ref)
+            require(torch.allclose(out.float(), ref.float(), rtol=tol,
+                                   atol=tol),
+                    f"flash_attention != plain on {case} {dtype}: {err}")
+            if kv_len == 4:
+                require(not bool(out[:, :, 12:].any()),
+                        "a fully masked row is not 0")
+            attn_err = max(attn_err, err)
+            cases.append({"case": f"flash {case}", "dtype": dt_name[dtype],
+                          "max_abs_err": {"flash_attention": err}})
+
+    # ---- the serving path's attention shapes (bf16, B = 2, L = 8192)
+    L, B = 8192, 2
+    shapes = {
+        # danube prefill: GQA 32/8, window 4096
+        "danube_prefill": (32, 8, L, L, True, 4096, 0, None),
+        # zamba2 shared block prefill: MHA 32/32, causal
+        "zamba2_prefill": (32, 32, L, L, True, None, 0, None),
+        # one decode step over the full cache: danube's rolling window and
+        # zamba2's growing cache (prompt 8192 + 32 generated)
+        "danube_decode": (32, 8, 1, 4096, False, None, 0, 4096),
+        "zamba2_decode": (32, 32, 1, L + 32, True, None, L + 31, L + 32),
+    }
+    attn = {}
+    for name, (hq, hkv, lq, lk, causal, window, q_offset, kv_len) in \
+            shapes.items():
+        kw = dict(causal=causal, window=window, q_offset=q_offset,
+                  kv_len=kv_len)
+        # float32 first, at the float32 tolerance: a wrong mask edge or
+        # offset moves these rows by far more than 2e-5
+        q = randn((B, hq, lq, HEAD_DIM))
+        k, v = randn((B, hkv, lk, HEAD_DIM)), randn((B, hkv, lk, HEAD_DIM))
+        out, ref = (flash_attention_cuda(q, k, v, **kw),
+                    attention_ref(q, k, v, **kw))
+        err32, tol = _err(out, ref), ATTN_TOL["float32"]
+        require(torch.allclose(out, ref, rtol=tol, atol=tol),
+                f"flash_attention != plain at {name} float32: {err32}")
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+        out, ref = (flash_attention_cuda(q, k, v, **kw),
+                    attention_ref(q, k, v, **kw))
+        err = _err(out, ref)
+        ref_std = float(ref.float().std())
+        rtol, atol = ATTN_TOL_FULL
+        require(torch.allclose(out.float(), ref.float(), rtol=rtol,
+                               atol=atol),
+                f"flash_attention != plain at {name}: {err} "
+                f"(ref std {ref_std})")
+        del out, ref
+        pairs = attn_pairs(lq, lk, causal, window, q_offset, kv_len)
+        flops = 4 * B * hq * pairs * HEAD_DIM
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        t = {"shape": {"q": list(q.shape), "kv": list(k.shape),
+                       "causal": causal, "window": window,
+                       "q_offset": q_offset, "kv_len": kv_len},
+             "ms": cuda_ms(lambda: flash_attention_cuda(q, k, v, **kw)),
+             "plain_ms": cuda_ms(lambda: attention_ref(q, k, v, **kw), 3, 1),
+             "bytes": nbytes, "flops": flops, "max_abs_err": err,
+             "float32_err": err32, "ref_std": ref_std}
+        t["bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
+                            flops / FLOPS_BF16) * 1e3
+        t["bound_by"] = ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= flops / FLOPS_BF16 else "operations")
+        t["TFLOPs"] = flops / (t["ms"] * 1e-3) / 1e12
+        # PyTorch's fused attention on the same inputs (timed only)
+        if name == "zamba2_prefill":
+            t["library"] = "F.scaled_dot_product_attention(is_causal=True)"
+            t["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True))
+        elif name == "danube_prefill":
+            qp = torch.arange(lq, device=dev)[:, None]
+            kp = torch.arange(lk, device=dev)[None, :]
+            mask = (kp <= qp) & (kp > qp - window)
+            t["library"] = ("F.scaled_dot_product_attention(attn_mask="
+                            "bool causal window, enable_gqa=True)")
+            t["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True))
+            del mask
+        attn[name] = t
+        del q, k, v
+        torch.cuda.empty_cache()
+    # the table's row: the zamba2 prefill, the shape where one library call
+    # computes the same function with no mask tensor
+    row = dict(attn["zamba2_prefill"])
+    row.update({"max_abs_err": max(attn_err, max(
+        a["max_abs_err"] for a in attn.values())), "shapes": attn})
+    timing["flash_attention"] = row
+
+    # ---- scans: small cases, both dtypes
+    def scan_inputs(mamba2, b, l, heads, st, dtype, dt_zero=True):
+        if mamba2:
+            nh, hd = heads
+            xs, ss, dts, a_s, hs = ((b, l, nh, hd), (b, l, nh, st),
+                                    (b, l, nh), (nh,), (b, nh, hd, st))
+        else:
+            (di,) = heads
+            xs, ss, dts, a_s, hs = ((b, l, di), (b, l, st), (b, l, di),
+                                    (di, st), (b, di, st))
+        dt = torch.rand(dts, generator=g, device=dev) * 0.5
+        if dt_zero:
+            dt[:, ::5] = 0.0
+        A = -(0.5 + 1.5 * torch.rand(a_s, generator=g, device=dev))
+        return (randn(xs, dtype), randn(ss, dtype), randn(ss, dtype), dt, A,
+                randn(hs))
+
+    scan_err = {"ssd_scan": 0.0, "s6_scan": 0.0}
+    for mamba2, b, l, heads, st in [
+        (True, 2, 1, (3, 64), 64), (True, 1, 37, (2, 64), 64),
+        (True, 2, 160, (3, 16), 8), (True, 1, 33, (2, 16), 48),
+        (False, 1, 1, (64,), 16), (False, 2, 45, (100,), 16),
+        (False, 2, 96, (256,), 8), (False, 1, 17, (64,), 40),
+    ]:
+        kernel = ssd_scan_cuda if mamba2 else s6_scan_cuda
+        plain = ssd_scan_ref if mamba2 else s6_scan_ref
+        name = "ssd_scan" if mamba2 else "s6_scan"
+        for dtype in (torch.float32, torch.bfloat16):
+            args = scan_inputs(mamba2, b, l, heads, st, dtype)
+            (y, h), (y_r, h_r) = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            rtol, atol = SCAN_TOL[dt_name[dtype]]
+            err = max(_err(y, y_r), _err(h, h_r))
+            require(torch.allclose(y.float(), y_r.float(), rtol=rtol,
+                                   atol=atol)
+                    and torch.allclose(h, h_r, rtol=rtol, atol=atol),
+                    f"{name} != plain on {(b, l, heads, st)} {dtype}: {err}")
+            scan_err[name] = max(scan_err[name], err)
+            cases.append({"case": f"{name} {(b, l, heads, st)}",
+                          "dtype": dt_name[dtype],
+                          "max_abs_err": {name: err}})
+
+    # ---- the serving path's scan shapes (float32, B = 2, L = 8192), as the
+    # models call them: zamba2 (80 heads of 64, state 64, one B/C group
+    # broadcast over the heads) and falcon-mamba-7b (8192 channels, state 16)
+    for name, mamba2, heads, st in (("ssd_scan", True, (80, 64), 64),
+                                    ("s6_scan", False, (8192,), 16)):
+        args = list(scan_inputs(mamba2, B, L, heads, st, torch.float32,
+                                dt_zero=False))
+        args[3] = args[3] * 0.05          # softplus(-4 + ...)-sized steps
+        if mamba2:
+            nh = heads[0]
+            args[1] = args[1][:, :, :1].expand(-1, -1, nh, -1)
+            args[2] = args[2][:, :, :1].expand(-1, -1, nh, -1)
+        kernel = ssd_scan_cuda if mamba2 else s6_scan_cuda
+        (y, h), (y_r, h_r) = kernel(*args), chunked_scan_ref(*args)
+        err = max(_err(y, y_r), _err(h, h_r))
+        rtol, atol = SCAN_TOL_FULL
+        require(torch.allclose(y, y_r, rtol=rtol, atol=atol)
+                and torch.allclose(h, h_r, rtol=rtol, atol=atol),
+                f"{name} != plain at the path's shape: {err}")
+        del y, h, y_r, h_r
+        state = B * L * (heads[0] * heads[1] if mamba2 else heads[0]) * st
+        if mamba2:
+            # h = fma(decay, h, x * b) and y = fma(h, c, y): 5 flops a state
+            # value and step; one exp a head and step
+            flops = 5 * state + B * L * heads[0]
+            nbytes = 4 * (2 * args[0].numel() + 2 * B * L * st
+                          + args[3].numel() + args[4].numel()
+                          + 2 * args[5].numel())
+        else:
+            # exp(dt * A) adds a multiply and an exp: 7 a state value
+            flops = 7 * state
+            nbytes = 4 * (3 * args[0].numel() + 2 * B * L * st
+                          + args[4].numel() + 2 * args[5].numel())
+        t = {"shape": [list(a.shape) for a in args],
+             "ms": cuda_ms(lambda: kernel(*args), 5, 1),
+             "plain_ms": cuda_ms(lambda: chunked_scan_ref(*args), 3, 1),
+             "plain": "ref.chunked_scan_ref (chunk 256)",
+             "bytes": nbytes, "flops": flops,
+             "max_abs_err": max(scan_err[name], err),
+             "full_shape_err": err, "library_ms": None,
+             "library": "none: PyTorch has no selective scan"}
+        t["bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
+                            flops / FLOPS_FP32) * 1e3
+        t["bound_by"] = ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= flops / FLOPS_FP32 else "operations")
+        timing[name] = t
+        del args
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- phase 3
 def danube_shapes() -> dict:
     """Shapes of the h2o-danube-1.8b parameter set, by state-dict key."""
@@ -396,12 +677,17 @@ def stage_words() -> int:
 
 def _wrappers() -> dict:
     from repro_torch.kernels.checksum.kernel import checksum_rows
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
     from repro_torch.kernels.rs_erasure.kernel import gf_matmul_cuda
     from repro_torch.kernels.snapshot.kernel import snapshot_chunks_cuda
+    from repro_torch.kernels.ssm_scan.kernel import s6_scan_cuda, ssd_scan_cuda
     from repro_torch.kernels.xor_parity.kernel import xor_reduce_cuda
 
     return {"checksum": checksum_rows, "snapshot": snapshot_chunks_cuda,
-            "xor_reduce": xor_reduce_cuda, "gf_matmul": gf_matmul_cuda}
+            "xor_reduce": xor_reduce_cuda, "gf_matmul": gf_matmul_cuda,
+            "flash_attention": flash_attention_cuda,
+            "ssd_scan": ssd_scan_cuda, "s6_scan": s6_scan_cuda}
 
 
 def _counts():
@@ -927,6 +1213,215 @@ def phase_aft(results: dict, scratch: Path) -> dict:
                     "reference does)"}
 
 
+# ---------------------------------------------------------------- phase 7
+SERVE_ARCHS = ("h2o-danube-1.8b", "zamba2-2.7b", "falcon-mamba-7b")
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 2, 8192, 32
+SERVE_CP_FREQ, SERVE_FAIL_AT = 16, 20
+SERVE_TINY = False               # full-size configurations (CPU rehearsal: True)
+TRACE_STEPS = 4                  # decode steps in each model's trace
+# the kernels each model's path must launch
+SERVE_KERNELS = {"h2o-danube-1.8b": ("flash_attention",),
+                 "zamba2-2.7b": ("flash_attention", "ssd_scan"),
+                 "falcon-mamba-7b": ("s6_scan",)}
+
+
+def _tree_bytes(tree) -> int:
+    import torch.utils._pytree as pytree
+
+    return sum(t.numel() * t.element_size() for t in pytree.tree_leaves(tree))
+
+
+def _tier_writes():
+    """(count, seconds) of the tier writes so far (``tier_write_seconds``
+    histograms of the metrics registry, every tier)."""
+    from repro_torch.core import metrics
+
+    hists = metrics.snapshot()["histograms"]
+    sel = [h for k, h in hists.items() if k.startswith("tier_write_seconds")]
+    return sum(h["count"] for h in sel), sum(h["sum"] for h in sel)
+
+
+def decode_trace(cfg, params, dev, untraced_s: float) -> dict:
+    """Trace ``TRACE_STEPS`` decode steps of the serve loop (a prefill and
+    one untraced step first) with torch.profiler: the device's busy time a
+    token (the union of its kernel and copy intervals), its idle share of
+    the traced wall time and of the untraced run's time a token
+    (``untraced_s``), device operations a token, and the five kernels
+    that take the most device time."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.steps import make_decode_step, make_prefill
+
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)
+    cache, logits = make_prefill(cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_GEN,
+                                 dev)(params, torch.from_numpy(prompts).to(dev))
+    decode = make_decode_step(cfg)
+    tok, pos = torch.argmax(logits, dim=-1).to(torch.int32), SERVE_PROMPT
+
+    def step():                  # the serve loop's body
+        nonlocal cache, tok, pos
+        cache, lg = decode(params, cache, tok[:, None], pos)
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)
+        tok.cpu()
+        pos += 1
+
+    step()
+    torch_sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TRACE_STEPS):
+            step()
+        torch_sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in ops):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_name: dict = {}
+    for e in ops:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    per_tok = busy / TRACE_STEPS * 1e-6
+    return {"steps": TRACE_STEPS, "traced_s_per_token":
+            wall_us / TRACE_STEPS * 1e-6,
+            "device_busy_s_per_token": per_tok if ops else None,
+            "idle_share_traced": 1 - busy / wall_us if ops else None,
+            "idle_share_untraced": 1 - per_tok / untraced_s if ops else None,
+            "device_ops_per_token": len(ops) / TRACE_STEPS,
+            "top_kernels": [{"name": n[:80], "per_token": c / TRACE_STEPS,
+                             "s_per_token": us / TRACE_STEPS * 1e-6}
+                            for n, (c, us) in top]}
+
+
+def serve_one(arch: str, scratch: Path) -> dict:
+    """One full-size model through ``repro_torch.launch.serve.run``: an
+    uninterrupted run, a run that checkpoints every 16 tokens and fails
+    at token 20, and the resumed run, which must restart at token 16 and
+    produce the uninterrupted run's tokens."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.utils._pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import CraftEnv
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    dev = torch.device(DEVICE)
+    cfg = get_config(arch, tiny=SERVE_TINY)
+    on_card = dev.type == "cuda"
+    # closed Checkpoints of earlier phases and runs sit in reference cycles
+    # with the state they held: collect them, so the peak below is this
+    # model's own
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() if on_card else None
+    torch_sync()
+    t0 = time.perf_counter()
+    params = M.init_params(torch.Generator(device=dev).manual_seed(SEED),
+                           cfg, dev)
+    torch_sync()
+    init_s = time.perf_counter() - t0
+    cache_bytes = _tree_bytes(M.init_cache(
+        cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, device="meta"))
+    sc = serve.ServeConfig(arch=arch, tiny=SERVE_TINY, batch=SERVE_BATCH,
+                           prompt_len=SERVE_PROMPT, gen_tokens=SERVE_GEN,
+                           seed=SEED, device=DEVICE, cp_name="serve")
+    c0 = _counts()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    clean = serve.run(sc, params=params)
+    launches = _delta(c0, _counts())
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    env = CraftEnv.capture({"CRAFT_CP_PATH": str(scratch / arch),
+                            "CRAFT_TIER_CHAIN": "pfs",
+                            "CRAFT_DEVICE_SNAPSHOT": "1",
+                            "CRAFT_METRICS": "1"})
+    ck = dataclasses.replace(sc, cp_freq=SERVE_CP_FREQ)
+    w0 = _tier_writes()
+    t0 = time.perf_counter()
+    try:
+        serve.run(ck, env=env, params=params, fail_at_token=SERVE_FAIL_AT)
+    except RuntimeError as exc:
+        require("injected failure" in str(exc), f"{arch}: {exc}")
+    else:
+        raise Failure(f"{arch}: the failing run did not fail")
+    failing_s = time.perf_counter() - t0
+    w1, c1 = _tier_writes(), _counts()
+    resumed = serve.run(ck, env=env, params=params)
+    resume_launches = _delta(c1, _counts())
+    w2 = _tier_writes()
+    require(clean["logits_finite"] and resumed["logits_finite"],
+            f"{arch}: a logit was not finite")
+    require(resumed["resumed_at"] == SERVE_CP_FREQ,
+            f"{arch}: resumed at {resumed['resumed_at']}, not "
+            f"{SERVE_CP_FREQ}")
+    require(np.array_equal(resumed["tokens"], clean["tokens"]),
+            f"{arch}: the resumed run's tokens differ from the "
+            "uninterrupted run's")
+    # stronger than the tokens where random weights repeat one token: the
+    # last step's logits, bit for bit (the same kernels on the same inputs)
+    require(np.array_equal(resumed["last_logits"], clean["last_logits"]),
+            f"{arch}: the resumed run's last logits differ from the "
+            "uninterrupted run's")
+    for k in SERVE_KERNELS[arch]:
+        require(launches[k] > 0, f"{arch}: {k} never launched on serve")
+    out = {"arch": arch, "params": sum(
+        t.numel() for t in torch.utils._pytree.tree_leaves(params)),
+           "param_bytes": _tree_bytes(params),
+           "init_s": init_s, "prefill_s": clean["prefill_s"],
+           "decode_s_per_token": clean["decode_s"] / SERVE_GEN,
+           "cache_bytes": cache_bytes, "peak_device_bytes": peak,
+           "resident_device_bytes_before": resident,
+           "failing_run_s": failing_s,
+           "failing_run_tier_writes": [w1[0] - w0[0], w1[1] - w0[1]],
+           "resumed_at": resumed["resumed_at"],
+           "restore_s": resumed["restore_s"],
+           "resumed_cp_writes_s": resumed["cp_writes"],
+           "resumed_tier_writes": [w2[0] - w1[0], w2[1] - w1[1]],
+           "resumed_prefill_s": resumed["prefill_s"],
+           "resumed_decode_s_per_token": resumed["decode_s"] / (
+               SERVE_GEN - SERVE_CP_FREQ),
+           "tokens_equal": True, "last_logits_equal": True,
+           "logits_finite": True,
+           "first_tokens": clean["tokens"][0, :8].tolist(),
+           "launches": launches, "resume_launches": resume_launches}
+    del clean, resumed
+    if on_card:
+        out["decode_trace"] = decode_trace(cfg, params, dev,
+                                           out["decode_s_per_token"])
+    del params
+    shutil.rmtree(scratch / arch, ignore_errors=True)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve(results: dict, scratch: Path) -> dict:
+    from repro_torch.core import metrics
+
+    metrics.install()
+    _reset_counts()
+    models = [serve_one(arch, scratch) for arch in SERVE_ARCHS]
+    launches = _counts()
+    results["serve_launches"] = launches
+    return {"phase": "serve", "batch": SERVE_BATCH,
+            "prompt_len": SERVE_PROMPT, "gen_tokens": SERVE_GEN,
+            "cp_freq": SERVE_CP_FREQ, "fail_at_token": SERVE_FAIL_AT,
+            "models": models, "launches": launches}
+
+
 # ---------------------------------------------------------------- report
 KERNELS = [
     {"name": "checksum", "route": "cuda",
@@ -941,12 +1436,24 @@ KERNELS = [
     {"name": "gf_matmul", "route": "cuda",
      "source": "src/repro_torch/kernels/csrc/rs_erasure.cu",
      "replaces": "src/repro/kernels/rs_erasure/kernel.py:81"},
+    {"name": "flash_attention", "route": "cuda",
+     "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "replaces": "src/repro/kernels/flash_attention/kernel.py:103"},
+    {"name": "ssd_scan", "route": "cuda",
+     "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+     "replaces": "src/repro/kernels/ssm_scan/kernel.py:64"},
+    {"name": "s6_scan", "route": "cuda",
+     "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+     "replaces": "src/repro/kernels/ssm_scan/kernel.py:133"},
 ]
 # the path phase whose launches the table reports for each kernel
 PATH_OF = {"checksum": "launches", "snapshot": "launches",
            "xor_reduce": "redundancy_launches",
-           "gf_matmul": "redundancy_launches"}
-ALL_PHASES = ["build", "kernels", "main", "default", "redundancy", "aft"]
+           "gf_matmul": "redundancy_launches",
+           "flash_attention": "serve_launches",
+           "ssd_scan": "serve_launches", "s6_scan": "serve_launches"}
+ALL_PHASES = ["build", "kernels", "main", "default", "redundancy", "aft",
+              "serve"]
 
 
 def main(argv=None) -> int:
@@ -985,6 +1492,9 @@ def main(argv=None) -> int:
             shutil.rmtree(scratch / "redundancy", ignore_errors=True)
         if "aft" in phases:
             emit(phase_aft(results, scratch / "aft"))
+            shutil.rmtree(scratch / "aft", ignore_errors=True)
+        if "serve" in phases:
+            emit(phase_serve(results, scratch / "serve"))
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     if phases != ALL_PHASES:
@@ -999,7 +1509,8 @@ def main(argv=None) -> int:
         table.append({**k, "launches": launches[k["name"]],
                       "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                       "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                      "bound_by": t["bound_by"], "library_ms": None})
+                      "bound_by": t["bound_by"],
+                      "library_ms": t.get("library_ms")})
     emit({"kernels": table})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

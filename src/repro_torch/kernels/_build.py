@@ -25,6 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 
 _VOIDP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_FLOAT = ctypes.c_float
 # C signatures of the exported entry points (every one returns cudaError_t)
 SIGNATURES = {
     "checksum": {"craft_checksum_rows": [_VOIDP, _VOIDP, _LL, _LL, _VOIDP]},
@@ -33,6 +34,14 @@ SIGNATURES = {
     "xor_parity": {"craft_xor_reduce": [_VOIDP, _VOIDP, _LL, _LL, _VOIDP]},
     "rs_erasure": {"craft_gf_matmul": [_VOIDP, _VOIDP, _VOIDP, _INT, _INT,
                                        _LL, _VOIDP]},
+    "flash_attention": {"craft_flash_attention": [_VOIDP] * 4 + [_INT] * 6
+                        + [_LL] * 9 + [_FLOAT] + [_INT] * 5 + [_VOIDP]},
+    "ssm_scan": {
+        "craft_ssd_scan": [_VOIDP] * 8 + [_INT] * 5 + [_LL] * 12
+        + [_INT, _VOIDP],
+        "craft_s6_scan": [_VOIDP] * 8 + [_INT] * 4 + [_LL] * 8
+        + [_INT, _VOIDP],
+    },
 }
 KERNELS = tuple(SIGNATURES)
 

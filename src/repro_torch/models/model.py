@@ -1,0 +1,214 @@
+"""Full language-model assembly: embed → blocks → norm → logits (the
+reference's ``repro/models/model.py:56-412``, serving path).
+
+Families of this slice
+  * dense  — transformer blocks (GQA, optional sliding window),
+  * ssm    — mamba1/mamba2 blocks (attention-free),
+  * hybrid — zamba2: groups of ``shared_attn_every`` mamba2 blocks with ONE
+    weight-shared transformer block applied between groups.
+``moe`` and the modality frontends (``audio``, ``vlm``) come with later
+slices of the port and raise here.
+
+Parameters keep the reference's tree and layer-stacked layout: ``blocks``
+leaves are ``(n_layers, ...)``; ``shared_block`` and ``lm_head`` are as
+there.  The reference's ``lax.scan`` over layers is a Python loop over the
+stacked leaves; ``remat`` and the mesh constraints are training/mesh
+concerns and have no counterpart here.
+
+Caches keep the reference's tree too (``{"layers": {...stacked},
+"shared": {...stacked}}``, same leaf names, shapes and dtypes), so a decode
+checkpoint has the same files in both packages.  The ``(n_layers,)`` int32
+``pos`` leaves live on the host (CPU) whatever the device: each layer
+reads its position without a device sync.  Every other leaf lives on the
+parameters' device and is updated in place.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.utils._pytree as pytree
+
+from repro_torch.models import blocks as blk
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.layers import (
+    Init, dense_init, embed_apply, embed_init, rms_norm, stack_init,
+    unembed_apply,
+)
+
+SERVED_FAMILIES = ("dense", "ssm", "hybrid")
+
+
+def _served(cfg: ModelConfig) -> None:
+    if cfg.family not in SERVED_FAMILIES:
+        later = {"moe": "MoE", "audio": "frontends", "vlm": "frontends"}
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.arch_id}) is not ported yet: it "
+            f"comes with the {later.get(cfg.family, cfg.family)} slice of "
+            "the port (ROADMAP.md)")
+    if cfg.frontend or cfg.mtp:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: modality frontends and MTP heads come with a "
+            "later slice of the port (ROADMAP.md)")
+
+
+def _layer_slice(tree, i: int):
+    return pytree.tree_map(lambda x: x[i], tree)
+
+
+# ==========================================================================
+# parameters
+# ==========================================================================
+def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
+                device="cuda"):
+    """Random parameters from ``gen`` (a generator on ``device``), one
+    tensor at a time in float32 rounded to ``cfg.dtype``.  On the ``meta``
+    device ``gen`` may be None: shapes and dtypes only."""
+    _served(cfg)
+    ini = Init(gen, device)
+    params = {"embed": embed_init(ini, cfg),
+              "final_ln": ini.full((cfg.d_model,), 1.0, cfg.dtype)}
+    if cfg.family == "dense":
+        params["blocks"] = stack_init(
+            lambda i: blk.tblock_init(i, cfg), ini, cfg.n_layers)
+    else:
+        params["blocks"] = stack_init(
+            lambda i: blk.sblock_init(i, cfg), ini, cfg.n_layers)
+        if cfg.family == "hybrid":
+            params["shared_block"] = blk.tblock_init(ini, cfg)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(
+            ini, (cfg.d_model, cfg.vocab), cfg.d_model, cfg.dtype)
+    return params
+
+
+# ==========================================================================
+# caches
+# ==========================================================================
+def _stack_cache(proto, n: int, device):
+    """``n`` zeroed copies of a one-layer cache, stacked; ``proto`` is on
+    the meta device except its host ``pos`` leaf, which stays on the CPU."""
+    return pytree.tree_map(
+        lambda a: torch.zeros((n, *a.shape), dtype=a.dtype,
+                              device=device if a.is_meta else a.device),
+        proto)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               device="cuda"):
+    _served(cfg)
+    dtype = dtype or cfg.dtype
+    if cfg.family == "dense":
+        proto = blk.tblock_cache_init(cfg, batch, max_len, dtype, "meta")
+        return {"layers": _stack_cache(proto, cfg.n_layers, device)}
+    sproto = blk.sblock_cache_init(cfg, batch, dtype, "meta")
+    out = {"layers": _stack_cache(sproto, cfg.n_layers, device)}
+    if cfg.family == "hybrid":
+        tproto = blk.tblock_cache_init(cfg, batch, max_len, dtype, "meta")
+        n_shared = (cfg.n_layers // cfg.shared_attn_every
+                    if cfg.shared_attn_every else 0)
+        out["shared"] = _stack_cache(tproto, max(1, n_shared), device)
+    return out
+
+
+# ==========================================================================
+# forward
+# ==========================================================================
+def _run_stack(block_apply, stacked_params, x, caches=None):
+    """Run a homogeneous stack of blocks, layer by layer; the stacked
+    caches are updated in place.  Returns (x, aux)."""
+    n = pytree.tree_leaves(stacked_params)[0].shape[0]
+    aux = 0.0
+    for i in range(n):
+        c = _layer_slice(caches, i) if caches is not None else None
+        x, _, a = block_apply(_layer_slice(stacked_params, i), x, c)
+        aux = aux + a
+    return x, aux
+
+
+def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Hidden (B, L, D) → logits (B, L, V); handles tied/untied heads."""
+    if cfg.tie_embeddings:
+        return unembed_apply(params["embed"], x, fp32=cfg.logits_fp32)
+    logits = x @ params["lm_head"]
+    return logits.float() if cfg.logits_fp32 else logits
+
+
+def forward_hidden(
+    params,
+    cfg: ModelConfig,
+    tokens: Optional[torch.Tensor] = None,     # (B, L) integer
+    embeds: Optional[torch.Tensor] = None,
+    cache=None,
+    pos0=None,                                 # host integer offset
+) -> Tuple[torch.Tensor, Optional[dict], float]:
+    """Returns (final hidden (B, L, D), new_cache, aux_loss).
+
+    The unembed projection is not applied: serving unembeds only the
+    positions it needs.  ``cache`` is updated in place and returned.  The
+    aux loss is MoE's, 0.0 for the families of this slice.
+    """
+    _served(cfg)
+    if embeds is not None:
+        raise NotImplementedError("modality embeds come with the frontends "
+                                  "slice of the port (ROADMAP.md)")
+    x = embed_apply(params["embed"], tokens)
+    l = x.shape[1]
+    pos0 = 0 if pos0 is None else int(pos0)
+    positions = torch.arange(l, device=x.device) + pos0
+
+    def t_apply(p, h, c):
+        return blk.tblock_apply(p, h, cfg, positions, c)
+
+    def s_apply(p, h, c):
+        return blk.sblock_apply(p, h, cfg, c)
+
+    if cfg.family == "hybrid":
+        x, aux = _hybrid_forward(params, x, cfg, positions, cache)
+    else:
+        caches = cache["layers"] if cache is not None else None
+        fn = t_apply if cfg.family == "dense" else s_apply
+        x, aux = _run_stack(fn, params["blocks"], x, caches)
+    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    return x, cache, aux
+
+
+def forward(
+    params,
+    cfg: ModelConfig,
+    tokens: Optional[torch.Tensor] = None,
+    embeds: Optional[torch.Tensor] = None,
+    cache=None,
+    pos0=None,
+) -> Tuple[torch.Tensor, Optional[dict], float]:
+    """Returns (logits (B, L, V) fp32, new_cache, aux_loss) — materializes
+    the full logits tensor; use only at decode/small shapes or in tests."""
+    x, new_cache, aux = forward_hidden(
+        params, cfg, tokens=tokens, embeds=embeds, cache=cache, pos0=pos0)
+    return unembed(params, cfg, x), new_cache, aux
+
+
+def _hybrid_forward(params, x, cfg, positions, cache):
+    """zamba2: groups of ``shared_attn_every`` mamba blocks, then the
+    weight-shared attention block (its own KV cache per application).
+    The caches are updated in place.  Returns (x, aux)."""
+    every = cfg.shared_attn_every or cfg.n_layers + 1
+    n_shared = cfg.n_layers // every if cfg.shared_attn_every else 0
+    aux = 0.0
+    layer = 0
+    for g in range(max(1, (cfg.n_layers + every - 1) // every)):
+        hi = min(layer + every, cfg.n_layers)
+        for i in range(layer, hi):
+            c = (_layer_slice(cache["layers"], i)
+                 if cache is not None else None)
+            x, _, a = blk.sblock_apply(_layer_slice(params["blocks"], i), x,
+                                       cfg, c)
+            aux = aux + a
+        layer = hi
+        if cfg.shared_attn_every and g < n_shared:
+            c = (_layer_slice(cache["shared"], g)
+                 if cache is not None else None)
+            x, _, a = blk.tblock_apply(params["shared_block"], x, cfg,
+                                       positions, c)
+            aux = aux + a
+    return x, aux

@@ -3,23 +3,36 @@ card.  Every test here needs a CUDA device and skips without one (the
 kernels have no CPU mode).  The file imports neither JAX nor the reference
 package, so it runs where only the port is installed:
 
-    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
+        tests/test_torch_cuda.py
+
+(``--noconftest``: ``tests/conftest.py`` imports the reference package.)
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
+import torch.utils._pytree
 
+from repro_torch.configs import get_config, register_config
 from repro_torch.core import Box, Checkpoint, CraftEnv
 from repro_torch.kernels.checksum import ops as ck_ops
 from repro_torch.kernels.checksum.kernel import checksum_rows
 from repro_torch.kernels.checksum.ref import checksum_rows_ref
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rs_erasure import ops as rs_ops
 from repro_torch.kernels.rs_erasure.kernel import gf_matmul_cuda
 from repro_torch.kernels.snapshot.kernel import snapshot_chunks_cuda
 from repro_torch.kernels.snapshot.ref import snapshot_ref
+from repro_torch.kernels.ssm_scan.kernel import s6_scan_cuda, ssd_scan_cuda
+from repro_torch.kernels.ssm_scan.ref import s6_scan_ref, ssd_scan_ref
 from repro_torch.kernels.xor_parity import ops as xor_ops
 from repro_torch.kernels.xor_parity.kernel import xor_reduce_cuda
 from repro_torch.kernels.xor_parity.ref import xor_reduce_ref
+from repro_torch.launch import serve
+from repro_torch.models import model as M
 
 pytestmark = pytest.mark.cuda
 
@@ -133,3 +146,127 @@ def test_rs_encode_lose_two_decode_on_the_card(cuda):
     assert xor_ops.parity_of_buffers(bufs, cuda) == parity[0]
     assert xor_ops.reconstruct_member(parity[0], bufs[1:], sizes[0],
                                       cuda) == bufs[0]
+
+
+# ------------------------------------------------------------ LM kernels
+FLASH_CASES = [
+    # (b, hq, hkv, lq, lk, d, causal, window, q_offset, kv_len)
+    (1, 2, 2, 128, 128, 64, True, None, 0, None),      # group 1
+    (2, 8, 2, 100, 260, 80, True, None, 160, None),    # group 4, ragged
+    (1, 4, 1, 70, 70, 128, True, 16, 0, None),         # window
+    (2, 4, 4, 64, 200, 80, False, None, 0, 137),       # kv_len
+    (1, 8, 2, 1, 300, 80, True, None, 250, 251),       # decode, growing
+    (1, 8, 2, 1, 64, 80, False, None, 0, 40),          # decode, rolling
+    (1, 2, 2, 64, 64, 32, True, 8, 0, 4),              # fully masked rows
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_matches_plain(cuda, case, dtype):
+    b, hq, hkv, lq, lk, d, causal, window, q_offset, kv_len = case
+    g = torch.Generator(device=cuda).manual_seed(lq * 7 + lk)
+    q = torch.randn((b, lq, hq, d), generator=g, device=cuda,
+                    dtype=dtype).transpose(1, 2)          # strided q
+    k = torch.randn((b, hkv, lk, d), generator=g, device=cuda, dtype=dtype)
+    v = torch.randn((b, hkv, lk, d), generator=g, device=cuda, dtype=dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    launches = flash_attention_cuda.launches
+    out = flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == launches + 1
+    ref = attention_ref(q, k, v, **kw)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    if kv_len == 4:                 # rows past kv_len + window see no key
+        assert not bool(out[:, :, 12:].any())
+
+
+def _scan_inputs(cuda, shape, dtype, seed, mamba2=True):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    b, l = shape[:2]
+    if mamba2:
+        _, _, nh, hd, st = shape
+        xs, ss, dts, a_s, hs = ((b, l, nh, hd), (b, l, nh, st), (b, l, nh),
+                                (nh,), (b, nh, hd, st))
+    else:
+        _, _, di, st = shape
+        xs, ss, dts, a_s, hs = ((b, l, di), (b, l, st), (b, l, di),
+                                (di, st), (b, di, st))
+    dtx = torch.randn(xs, generator=g, device=cuda).to(dtype)
+    bh = torch.randn(ss, generator=g, device=cuda).to(dtype)
+    ch = torch.randn(ss, generator=g, device=cuda).to(dtype)
+    dt = torch.rand(dts, generator=g, device=cuda) * 0.5
+    dt[:, ::5] = 0.0                      # dt = 0 steps keep the state
+    A = -(0.5 + 1.5 * torch.rand(a_s, generator=g, device=cuda))
+    h0 = torch.randn(hs, generator=g, device=cuda)
+    return dtx, bh, ch, dt, A, h0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 64, 2, 8, 8), (2, 160, 3, 16, 8),
+                                   (1, 128, 4, 32, 16), (2, 1, 3, 64, 64),
+                                   (1, 37, 2, 64, 64), (1, 33, 2, 16, 48)])
+def test_ssd_scan_matches_plain(cuda, shape, dtype):
+    args = _scan_inputs(cuda, shape, dtype, sum(shape))
+    launches = ssd_scan_cuda.launches
+    y, h = ssd_scan_cuda(*args)
+    torch.cuda.synchronize()
+    assert ssd_scan_cuda.launches == launches + 1
+    y_r, h_r = ssd_scan_ref(*args)
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    assert y.dtype == dtype and h.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_r.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h, h_r, rtol=tol, atol=tol)
+
+
+def test_ssd_scan_takes_broadcast_groups(cuda):
+    dtx, bh, ch, dt, A, h0 = _scan_inputs(cuda, (2, 50, 4, 16, 16),
+                                          torch.float32, 3)
+    bg = bh[:, :, :1].expand_as(bh)       # one B/C group over 4 heads
+    cg = ch[:, :, :1].expand_as(ch)
+    y, h = ssd_scan_cuda(dtx, bg, cg, dt, A, h0)
+    y_r, h_r = ssd_scan_ref(dtx, bg.contiguous(), cg.contiguous(), dt, A, h0)
+    torch.testing.assert_close(y, y_r, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, h_r, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 96, 128, 8), (2, 96, 256, 8),
+                                   (1, 1, 64, 16), (2, 45, 100, 16),
+                                   (1, 20, 70, 32), (1, 17, 64, 40)])
+def test_s6_scan_matches_plain(cuda, shape, dtype):
+    args = _scan_inputs(cuda, shape, dtype, sum(shape), mamba2=False)
+    launches = s6_scan_cuda.launches
+    y, h = s6_scan_cuda(*args)
+    torch.cuda.synchronize()
+    assert s6_scan_cuda.launches == launches + 1
+    y_r, h_r = s6_scan_ref(*args)
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(y.float(), y_r.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h, h_r, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "zamba2-2.7b",
+                                  "falcon-mamba-7b"])
+def test_tiny_serve_on_the_card_equals_cpu(cuda, arch):
+    """float32 TINY serve: the card's greedy tokens equal the CPU's."""
+    name = f"{arch}-tiny-f32-card"
+    tiny = get_config(arch, tiny=True).replace(param_dtype="float32")
+    register_config(name, tiny, tiny)
+    sc = serve.ServeConfig(arch=name, batch=2, prompt_len=40, gen_tokens=8)
+    params = M.init_params(torch.Generator().manual_seed(0), tiny, "cpu")
+    cpu = serve.run(dataclasses.replace(sc, device="cpu"), params=params)
+    before = (flash_attention_cuda.launches, ssd_scan_cuda.launches,
+              s6_scan_cuda.launches)
+    card_params = torch.utils._pytree.tree_map(lambda t: t.to(cuda), params)
+    card = serve.run(dataclasses.replace(sc, device="cuda"),
+                     params=card_params)
+    after = (flash_attention_cuda.launches, ssd_scan_cuda.launches,
+             s6_scan_cuda.launches)
+    assert card["logits_finite"] and cpu["logits_finite"]
+    np.testing.assert_array_equal(card["tokens"], cpu["tokens"])
+    used = {"h2o-danube-1.8b": (0,), "zamba2-2.7b": (0, 1),
+            "falcon-mamba-7b": (2,)}[arch]
+    for i in used:
+        assert after[i] > before[i]

@@ -1,0 +1,275 @@
+"""The port's attention and selective-scan plain versions against the
+reference package.
+
+On the CPU the port's ``ref.py`` twins and its dispatch (``ops.py``) are
+held against the reference's jnp oracles, its Pallas kernels run in
+interpret mode, its blocked attention and the chunked scan its models run
+(``repro.models.ssm._fused_ssd_scan``), on the same seeded numpy inputs.
+The hand-written CUDA kernels are held against these plain versions on the
+card in ``test_torch_cuda.py``.
+
+Tolerances: float32 2e-5 for attention (as ``tests/test_kernels.py``: the
+two sum the same products in another order) and 2e-4 for the scans (the
+associative scans combine in another order, and the states compound it);
+bfloat16 2e-2 / 3e-2, one rounding of the output apart.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.blocked import blocked_attention
+from repro.kernels.flash_attention.kernel import flash_attention as fa_pallas
+from repro.kernels.flash_attention.ref import attention_ref as jax_attention
+from repro.kernels.ssm_scan.ops import selective_scan as jax_scan
+from repro.kernels.ssm_scan.ref import s6_scan_ref
+from repro.kernels.ssm_scan.ref import ssd_scan_ref
+from repro.models.ssm import _fused_ssd_scan
+
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.ssm_scan import ops as scan_ops
+from repro_torch.kernels.ssm_scan.kernel import s6_scan_cuda, ssd_scan_cuda
+from repro_torch.kernels.ssm_scan import ref as scan_ref
+from repro_torch.kernels.ssm_scan.ref import chunked_scan_ref
+
+# the reference's naive oracles, compiled (eager, their scans take seconds)
+jax_ssd, jax_s6 = jax.jit(ssd_scan_ref), jax.jit(s6_scan_ref)
+
+_JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _np32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _both(arr: np.ndarray, dtype: str):
+    """The same float32 numpy values as a jnp array and a torch tensor of
+    ``dtype`` (bfloat16 rounds identically in both)."""
+    j = jnp.asarray(arr, _JNP[dtype])
+    return j, torch.from_numpy(np.array(j, np.float32)).to(_TORCH[dtype])
+
+
+# ======================================================== flash attention
+FLASH_CASES = [
+    # (b, hq, hkv, lq, lk, d, causal, window, q_offset, kv_len, dtype)
+    (1, 2, 2, 128, 128, 64, True, None, 0, None, "float32"),
+    (2, 4, 2, 128, 256, 64, True, None, 0, None, "float32"),
+    (1, 2, 1, 256, 128, 128, False, None, 0, None, "float32"),
+    (1, 2, 2, 128, 128, 64, True, 64, 0, None, "float32"),
+    (1, 4, 4, 128, 128, 64, True, None, 0, None, "bfloat16"),
+    (2, 8, 2, 128, 128, 32, True, None, 0, None, "bfloat16"),
+    (1, 2, 2, 128, 256, 64, False, None, 0, 160, "float32"),    # kv_len
+    (1, 2, 2, 128, 256, 64, True, None, 128, None, "float32"),  # q_offset
+    (1, 8, 2, 100, 260, 80, True, 48, 0, None, "float32"),      # D 80
+    (2, 8, 2, 1, 200, 80, True, None, 150, 151, "float32"),     # Lq = 1
+    (1, 8, 2, 1, 64, 80, False, None, 0, 40, "bfloat16"),       # rolling
+    (1, 2, 2, 64, 64, 32, True, 8, 0, 4, "float32"),            # masked rows
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_case(i: int):
+    b, hq, hkv, lq, lk, d, causal, window, q_offset, kv_len, dtype = \
+        FLASH_CASES[i]
+    rng = np.random.default_rng(100 + i)
+    q, tq = _both(rng.standard_normal((b, hq, lq, d)), dtype)
+    k, tk = _both(rng.standard_normal((b, hkv, lk, d)), dtype)
+    v, tv = _both(rng.standard_normal((b, hkv, lk, d)), dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    return (q, k, v), (tq, tk, tv), kw, (2e-2 if dtype == "bfloat16"
+                                         else 2e-5)
+
+
+def _pallas(q, k, v, *, causal, window, q_offset, kv_len):
+    """The Pallas kernel in interpret mode, padded to its 128-row blocks
+    (padded keys masked through kv_len)."""
+    lq, lk = q.shape[2], k.shape[2]
+    pq, pk = -lq % 128, -lk % 128
+    pad = lambda x, n: jnp.pad(x, ((0, 0), (0, 0), (0, n), (0, 0)))  # noqa
+    out = fa_pallas(pad(q, pq), pad(k, pk), pad(v, pk), causal=causal,
+                    window=window, q_offset=q_offset,
+                    kv_len=lk if kv_len is None else kv_len, interpret=True)
+    return out[:, :, :lq]
+
+
+@pytest.mark.parametrize("i", range(len(FLASH_CASES)))
+def test_attention_ref_matches_reference(i):
+    (q, k, v), (tq, tk, tv), kw, tol = _flash_case(i)
+    want = jax_attention(q, k, v, **kw)
+    got = attention_ref(tq, tk, tv, **kw)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(_np32(got), _np32(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("i", range(len(FLASH_CASES)))
+def test_attention_ref_matches_pallas_interpret(i):
+    (q, k, v), (tq, tk, tv), kw, tol = _flash_case(i)
+    want = _pallas(q, k, v, **kw)
+    got = attention_ref(tq, tk, tv, **kw)
+    np.testing.assert_allclose(_np32(got), _np32(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("i", [0, 3, 8, 9])
+def test_attention_ref_matches_blocked(i):
+    """The reference model's CPU attention (the blocked flash algorithm)."""
+    (q, k, v), (tq, tk, tv), kw, tol = _flash_case(i)
+    kv_len = kw["kv_len"] if kw["kv_len"] is not None else k.shape[2]
+    want = blocked_attention(q, k, v, kw["causal"], kw["window"],
+                             q.shape[-1] ** -0.5, kw["q_offset"], kv_len, 64)
+    got = attention_ref(tq, tk, tv, **kw)
+    np.testing.assert_allclose(_np32(got), _np32(want), rtol=tol, atol=tol)
+
+
+def test_fully_masked_rows_are_zero():
+    _, (tq, tk, tv), kw, _ = _flash_case(len(FLASH_CASES) - 1)
+    out = attention_ref(tq, tk, tv, **kw)
+    assert not bool(out[:, :, 12:].any()) and bool(out[:, :, :11].all())
+
+
+@pytest.mark.parametrize("i", [1, 9])
+def test_ops_attention_on_the_cpu_is_the_plain_version(i):
+    _, (tq, tk, tv), kw, _ = _flash_case(i)
+    assert torch.equal(fa_ops.attention(tq, tk, tv, **kw),
+                       attention_ref(tq, tk, tv, **kw))
+
+
+def test_kernel_wrappers_refuse_host_tensors():
+    """The CUDA wrappers launch or raise: a CPU tensor is refused, never
+    computed by a fallback."""
+    _, (tq, tk, tv), kw, _ = _flash_case(0)
+    with pytest.raises(ValueError, match="CUDA tensor expected"):
+        flash_attention_cuda(tq, tk, tv, **kw)
+    for mamba2, fn in ((True, ssd_scan_cuda), (False, s6_scan_cuda)):
+        heads = (2, 8) if mamba2 else (16,)
+        _, tx = _scan_args(_scan_np(1, 1, 4, mamba2, heads, 8))
+        with pytest.raises(ValueError, match="CUDA tensor expected"):
+            fn(*tx)
+
+
+def test_ops_attention_refuses_other_devices():
+    q = torch.zeros((1, 1, 1, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa_ops.attention(q, q, q)
+
+
+# ======================================================== selective scans
+def _scan_np(seed, b, l, mamba2, heads, st, dt_zero=True):
+    """Seeded inputs: heads = (nh, hd) for mamba2, (di,) for mamba1."""
+    rng = np.random.default_rng(seed)
+    if mamba2:
+        nh, hd = heads
+        shapes = ((b, l, nh, hd), (b, l, nh, st), (b, l, nh), (nh,),
+                  (b, nh, hd, st))
+    else:
+        (di,) = heads
+        shapes = ((b, l, di), (b, l, st), (b, l, di), (di, st), (b, di, st))
+    xs, ss, dts, a_s, hs = shapes
+    dt = rng.uniform(0, 0.5, dts)
+    if dt_zero:
+        dt[:, ::5] = 0.0                  # dt = 0 steps keep the state
+    return dict(dtx=rng.standard_normal(xs), bh=rng.standard_normal(ss),
+                ch=rng.standard_normal(ss), dt=dt,
+                A=-rng.uniform(0.5, 2, a_s), h0=rng.standard_normal(hs))
+
+
+def _scan_args(arrs, dtype="float32"):
+    """(jax args, torch args): dtx/bh/ch in ``dtype``, dt/A/h0 float32."""
+    jx, tx = [], []
+    for name in ("dtx", "bh", "ch", "dt", "A", "h0"):
+        j, t = _both(arrs[name], dtype if name in ("dtx", "bh", "ch")
+                     else "float32")
+        jx.append(j)
+        tx.append(t)
+    return jx, tx
+
+
+def _close(got, want, tol):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np32(g), _np32(w), rtol=tol, atol=tol)
+
+
+SSD_SHAPES = [(1, 64, 2, 8, 8), (2, 160, 3, 16, 8), (1, 128, 4, 32, 16),
+              (2, 1, 3, 8, 8), (1, 37, 2, 8, 16)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_ssd_refs_match_reference(shape, dtype):
+    b, l, nh, hd, st = shape
+    jx, tx = _scan_args(_scan_np(sum(shape), b, l, True, (nh, hd), st),
+                        dtype)
+    want = jax_ssd(*jx)
+    tol = 3e-2 if dtype == "bfloat16" else 2e-4
+    y, h = scan_ref.ssd_scan_ref(*tx)
+    assert y.dtype == tx[0].dtype and h.dtype == torch.float32
+    _close((y, h), want, tol)
+    _close(chunked_scan_ref(*tx, chunk=32), want, tol)
+
+
+S6_SHAPES = [(2, 96, 128, 8), (2, 96, 256, 8), (1, 1, 64, 16),
+             (2, 45, 100, 16)]
+
+
+@pytest.mark.parametrize("shape", S6_SHAPES)
+def test_s6_refs_match_reference(shape):
+    b, l, di, st = shape
+    jx, tx = _scan_args(_scan_np(sum(shape), b, l, False, (di,), st))
+    want = jax_s6(*jx)
+    _close(scan_ref.s6_scan_ref(*tx), want, 2e-4)
+    _close(chunked_scan_ref(*tx, chunk=32), want, 2e-4)
+
+
+@pytest.mark.parametrize("case", [
+    # (mamba2, shape (b, l, *heads, st), blk)
+    (True, (1, 64, 2, 8, 8), 32),
+    (True, (2, 70, 3, 16, 8), 32),        # L not a multiple of blk (pads)
+    (False, (2, 96, 128, 8), 32),
+])
+def test_scan_refs_match_pallas_interpret(case):
+    mamba2, shape, blk = case
+    b, l, *heads, st = shape
+    jx, tx = _scan_args(_scan_np(7 + l, b, l, mamba2, tuple(heads), st))
+    want = jax_scan(*jx, blk=blk, interpret=True, use_pallas=True)
+    naive = scan_ref.ssd_scan_ref if mamba2 else scan_ref.s6_scan_ref
+    _close(naive(*tx), want, 2e-4)
+    _close(chunked_scan_ref(*tx, chunk=16), want, 2e-4)
+
+
+@pytest.mark.parametrize("chunk", [1, 16, 256])
+@pytest.mark.parametrize("case", [
+    (True, (1, 64, 2, 8, 8)), (True, (2, 50, 3, 16, 16)),
+    (False, (2, 50, 64, 8)), (False, (1, 1, 32, 16)),
+])
+def test_chunked_scan_matches_model_fused_scan(case, chunk):
+    """The scan the reference model runs, ragged tail chunk included."""
+    mamba2, shape = case
+    b, l, *heads, st = shape
+    jx, tx = _scan_args(_scan_np(3 + l + chunk, b, l, mamba2, tuple(heads),
+                                 st))
+    want = _fused_ssd_scan(*jx, chunk=chunk)
+    _close(chunked_scan_ref(*tx, chunk=chunk), want, 2e-4)
+
+
+def test_chunked_scan_with_zero_dt_keeps_the_state():
+    jx, tx = _scan_args(_scan_np(5, 2, 20, True, (2, 8), 8, dt_zero=False))
+    dtx, bh, ch, dt, A, h0 = tx
+    y, h = chunked_scan_ref(torch.zeros_like(dtx), bh, ch,
+                            torch.zeros_like(dt), A, h0, chunk=8)
+    assert torch.equal(h, h0)
+
+
+@pytest.mark.parametrize("mamba2", [True, False])
+def test_selective_scan_on_the_cpu_is_the_chunked_scan(mamba2):
+    heads = (2, 8) if mamba2 else (16,)
+    _, tx = _scan_args(_scan_np(11, 2, 40, mamba2, heads, 8))
+    got = scan_ops.selective_scan(*tx, chunk=16)
+    want = chunked_scan_ref(*tx, chunk=16)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
