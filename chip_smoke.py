@@ -19,12 +19,15 @@ Phases, each printing one JSON line:
    (4, largest stage) word matrix.  CUDA-event medians of each kernel and
    its plain version at the full size.  The LM kernels against their plain
    versions within stated tolerances: flash_attention in float32 and
-   bfloat16 over GQA groups 1 and 4, D 64/80/128, ragged Lq/Lk, causal
-   with and without a window, kv_len, q_offset, Lq = 1 and fully masked
-   rows, then at the serving path's shapes (danube and zamba2 prefill at
-   B 2, L 8192; one decode step over each full cache) in float32 and
-   bfloat16, timed in bfloat16 beside the plain version and
-   scaled_dot_product_attention; ssd_scan and s6_scan at
+   bfloat16 over GQA groups 1 and 4, D 16/40/64/80/128, ragged Lq/Lk,
+   causal with and without a window, kv_len (0 too), q_offset, Lq = 1,
+   fully masked rows and splits, each call's route (tc_prefill,
+   split_decode, scalar) checked against the wrapper's rule; then at the
+   serving path's shapes (danube and zamba2 prefill at B 2, L 8192; one
+   decode step over each full cache) in float32 and bfloat16, timed in
+   bfloat16 on its route and on the scalar route beside the plain version
+   and scaled_dot_product_attention, with the HMMA/HGMMA count of the
+   built library (cuobjdump -sass); ssd_scan and s6_scan at
    L = 1, ragged L, h0 != 0 and dt = 0 steps, then at (2, 8192, 80, 64, 64)
    and (2, 8192, 8192, 16), timed beside the plain chunked scan.
 3. main    — the paper's Listing-2 loop through ``repro_torch.core.Checkpoint``
@@ -60,8 +63,10 @@ Phases, each printing one JSON line:
    and 32 greedy tokens uninterrupted; the same with a decode checkpoint
    every 16 tokens (CRAFT_TIER_CHAIN=pfs, CRAFT_DEVICE_SNAPSHOT=1) failing
    at token 20; the resumed run must restart at token 16 and give the
-   uninterrupted run's tokens, every logit finite.  Then a torch.profiler
-   trace of a few decode steps: the device's busy time and idle share.
+   uninterrupted run's tokens, every logit finite, every attention call
+   of the prefill on the tc_prefill route, of the decode on split_decode,
+   none on scalar.  Then a torch.profiler trace of a few decode steps: the
+   device's busy time and idle share.
 
 Each path phase (main, redundancy, aft, serve) sets the kernels' launch
 counts to 0 before it runs and reads them after.  Then the kernel table (JSON), the
@@ -76,6 +81,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -127,6 +133,27 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, reps: int = 10) -> float:
+    """Device time of ``fn()`` in milliseconds: ``reps`` calls captured in
+    one CUDA graph, replayed and timed with CUDA events, so no host work
+    sits between the launches (``cuda_ms`` of a call whose host side
+    outlasts its kernels measures the host).  Not torch.profiler: a
+    profiler session this early left the later phases' host RSS 12-21 GiB
+    higher on the H100."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    ms = cuda_ms(graph.replay, 5, 1) / reps
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 class Failure(RuntimeError):
@@ -400,6 +427,28 @@ def _err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
 
+def _route_of(before: dict, after: dict) -> str:
+    """The one flash_attention route counted between two readings."""
+    moved = [r for r in after if after[r] != before[r]]
+    require(len(moved) == 1 and after[moved[0]] == before[moved[0]] + 1,
+            f"expected one flash_attention route, counted {before} -> "
+            f"{after}")
+    return moved[0]
+
+
+def tensor_core_sass(name: str) -> dict:
+    """Tensor-core instructions in kernel ``name``'s built library
+    (``cuobjdump -sass``): HMMA (mma.sync) and HGMMA (wgmma) counts."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(_build._lib_path(name))], check=True,
+                          capture_output=True, text=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("HMMA", "HGMMA")}
+
+
 def lm_kernels(cases: list, timing: dict) -> None:
     """flash_attention, ssd_scan and s6_scan against their plain versions
     on the card (small cases, then the serving path's full shapes), and
@@ -408,8 +457,9 @@ def lm_kernels(cases: list, timing: dict) -> None:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.kernel import \
-        flash_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel import (
+        _launch, choose_route, decode_splits, flash_attention_cuda,
+        key_range)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.ssm_scan.kernel import (
         s6_scan_cuda, ssd_scan_cuda)
@@ -425,7 +475,7 @@ def lm_kernels(cases: list, timing: dict) -> None:
     def randn(shape, dtype=torch.float32):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
-    # ---- flash_attention: small cases, both dtypes
+    # ---- flash_attention: small cases, both dtypes (each route)
     attn_err = 0.0
     for case in [
         # (b, hq, hkv, lq, lk, d, causal, window, q_offset, kv_len)
@@ -437,6 +487,13 @@ def lm_kernels(cases: list, timing: dict) -> None:
         (1, 8, 2, 1, 64, 80, False, None, 0, 40),        # Lq = 1, rolling
         (1, 2, 2, 64, 64, 32, True, 8, 0, 4),            # fully masked rows
         (1, 4, 1, 130, 130, 80, False, 32, 0, None),     # window, no causal
+        (1, 2, 1, 200, 200, 16, True, None, 0, None),    # D 16
+        (2, 4, 2, 333, 517, 80, True, None, 184, None),  # ragged, q_offset
+        (1, 4, 2, 257, 400, 64, True, 100, 143, None),   # window mid-tile
+        (2, 2, 2, 140, 140, 64, True, 8, 0, 4),          # masked rows, tc
+        (1, 2, 2, 100, 100, 40, True, None, 0, None),    # D 40: scalar
+        (1, 2, 1, 1, 64, 64, False, None, 0, 0),         # no key at all
+        (1, 1, 1, 64, 200, 64, True, 16, 100, None),     # a masked split
     ]:
         b, hq, hkv, lq, lk, d, causal, window, q_offset, kv_len = case
         kw = dict(causal=causal, window=window, q_offset=q_offset,
@@ -444,9 +501,13 @@ def lm_kernels(cases: list, timing: dict) -> None:
         for dtype in (torch.float32, torch.bfloat16):
             q = randn((b, lq, hq, d), dtype).transpose(1, 2)
             k, v = randn((b, hkv, lk, d), dtype), randn((b, hkv, lk, d), dtype)
+            r0 = dict(flash_attention_cuda.routes)
             out, ref = flash_attention_cuda(q, k, v, **kw), attention_ref(
                 q, k, v, **kw)
             torch.cuda.synchronize()
+            route = _route_of(r0, flash_attention_cuda.routes)
+            require(route == choose_route(dtype, lq, hq // hkv, d),
+                    f"flash_attention took {route} on {case} {dtype}")
             tol = ATTN_TOL[dt_name[dtype]]
             err = _err(out, ref)
             require(torch.allclose(out.float(), ref.float(), rtol=tol,
@@ -455,8 +516,11 @@ def lm_kernels(cases: list, timing: dict) -> None:
             if kv_len == 4:
                 require(not bool(out[:, :, 12:].any()),
                         "a fully masked row is not 0")
+            if kv_len == 0:
+                require(not bool(out.any()), "a row with no key is not 0")
             attn_err = max(attn_err, err)
             cases.append({"case": f"flash {case}", "dtype": dt_name[dtype],
+                          "route": route,
                           "max_abs_err": {"flash_attention": err}})
 
     # ---- the serving path's attention shapes (bf16, B = 2, L = 8192)
@@ -480,14 +544,20 @@ def lm_kernels(cases: list, timing: dict) -> None:
         # offset moves these rows by far more than 2e-5
         q = randn((B, hq, lq, HEAD_DIM))
         k, v = randn((B, hkv, lk, HEAD_DIM)), randn((B, hkv, lk, HEAD_DIM))
+        r0 = dict(flash_attention_cuda.routes)
         out, ref = (flash_attention_cuda(q, k, v, **kw),
                     attention_ref(q, k, v, **kw))
+        route32 = _route_of(r0, flash_attention_cuda.routes)
         err32, tol = _err(out, ref), ATTN_TOL["float32"]
         require(torch.allclose(out, ref, rtol=tol, atol=tol),
                 f"flash_attention != plain at {name} float32: {err32}")
         q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+        r0 = dict(flash_attention_cuda.routes)
         out, ref = (flash_attention_cuda(q, k, v, **kw),
                     attention_ref(q, k, v, **kw))
+        route = _route_of(r0, flash_attention_cuda.routes)
+        require(route == ("tc_prefill" if lq > 1 else "split_decode"),
+                f"flash_attention took {route} at {name} bfloat16")
         err = _err(out, ref)
         ref_std = float(ref.float().std())
         rtol, atol = ATTN_TOL_FULL
@@ -498,19 +568,36 @@ def lm_kernels(cases: list, timing: dict) -> None:
         del out, ref
         pairs = attn_pairs(lq, lk, causal, window, q_offset, kv_len)
         flops = 4 * B * hq * pairs * HEAD_DIM
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        # each input read once: q, the visible K/V rows, the output written
+        k_begin, k_end = key_range(lq, lk, causal, window, q_offset, kv_len)
+        nbytes = 2 * (2 * q.numel()
+                      + 2 * B * hkv * (k_end - k_begin) * HEAD_DIM)
+        kwl = dict(causal=causal, window=window or 0, sm_scale=HEAD_DIM ** -0.5,
+                   q_offset=q_offset, kv_len=kv_len or lk)
+        scratch = torch.empty_like(q)
         t = {"shape": {"q": list(q.shape), "kv": list(k.shape),
                        "causal": causal, "window": window,
                        "q_offset": q_offset, "kv_len": kv_len},
+             "route": route, "float32_route": route32,
              "ms": cuda_ms(lambda: flash_attention_cuda(q, k, v, **kw)),
+             "device_ms": graph_ms(lambda: flash_attention_cuda(q, k, v,
+                                                                **kw)),
+             # the scalar route (PR 13's kernel) on the same bf16 inputs
+             "scalar_ms": cuda_ms(lambda: _launch("scalar", q, k, v, scratch,
+                                                  **kwl), 5, 1),
              "plain_ms": cuda_ms(lambda: attention_ref(q, k, v, **kw), 3, 1),
              "bytes": nbytes, "flops": flops, "max_abs_err": err,
              "float32_err": err32, "ref_std": ref_std}
+        if route == "split_decode":
+            t["splits"] = list(decode_splits(
+                B, hkv, k_end - k_begin,
+                torch.cuda.get_device_properties(0).multi_processor_count))
         t["bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
                             flops / FLOPS_BF16) * 1e3
         t["bound_by"] = ("bytes" if nbytes / HBM_BYTES_PER_S
                          >= flops / FLOPS_BF16 else "operations")
         t["TFLOPs"] = flops / (t["ms"] * 1e-3) / 1e12
+        t["GBps"] = nbytes / (t["ms"] * 1e-3) / 1e9
         # PyTorch's fused attention on the same inputs (timed only)
         if name == "zamba2_prefill":
             t["library"] = "F.scaled_dot_product_attention(is_causal=True)"
@@ -525,14 +612,22 @@ def lm_kernels(cases: list, timing: dict) -> None:
             t["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, enable_gqa=True))
             del mask
+        else:                      # decode: every cached key is visible
+            t["library"] = ("F.scaled_dot_product_attention(q, k[:, :, "
+                            ":kv_len], v[:, :, :kv_len], enable_gqa=True)")
+            t["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k[:, :, :kv_len], v[:, :, :kv_len], enable_gqa=True))
         attn[name] = t
-        del q, k, v
+        del q, k, v, scratch
         torch.cuda.empty_cache()
     # the table's row: the zamba2 prefill, the shape where one library call
     # computes the same function with no mask tensor
     row = dict(attn["zamba2_prefill"])
     row.update({"max_abs_err": max(attn_err, max(
-        a["max_abs_err"] for a in attn.values())), "shapes": attn})
+        a["max_abs_err"] for a in attn.values())), "shapes": attn,
+        "sass": tensor_core_sass("flash_attention")})
+    require(row["sass"]["HMMA"] + row["sass"]["HGMMA"] > 0,
+            f"no tensor-core instruction in flash_attention: {row['sass']}")
     timing["flash_attention"] = row
 
     # ---- scans: small cases, both dtypes
@@ -697,6 +792,12 @@ def _counts():
 def _reset_counts() -> None:
     for w in _wrappers().values():
         w.launches = 0
+        if hasattr(w, "routes"):
+            w.routes = dict.fromkeys(w.routes, 0)
+
+
+def _attn_routes() -> dict:
+    return dict(_wrappers()["flash_attention"].routes)
 
 
 def phase_main(results: dict, scratch: Path) -> dict:
@@ -1337,11 +1438,12 @@ def serve_one(arch: str, scratch: Path) -> dict:
     sc = serve.ServeConfig(arch=arch, tiny=SERVE_TINY, batch=SERVE_BATCH,
                            prompt_len=SERVE_PROMPT, gen_tokens=SERVE_GEN,
                            seed=SEED, device=DEVICE, cp_name="serve")
-    c0 = _counts()
+    c0, r0 = _counts(), _attn_routes()
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     clean = serve.run(sc, params=params)
     launches = _delta(c0, _counts())
+    routes = _delta(r0, _attn_routes())
     peak = torch.cuda.max_memory_allocated() if on_card else None
     env = CraftEnv.capture({"CRAFT_CP_PATH": str(scratch / arch),
                             "CRAFT_TIER_CHAIN": "pfs",
@@ -1376,6 +1478,14 @@ def serve_one(arch: str, scratch: Path) -> dict:
             "uninterrupted run's")
     for k in SERVE_KERNELS[arch]:
         require(launches[k] > 0, f"{arch}: {k} never launched on serve")
+    # bf16 attention: prefill calls on the tensor cores, decode steps
+    # split over the keys, the scalar route never
+    if "flash_attention" in SERVE_KERNELS[arch]:
+        require(routes["scalar"] == 0 and routes["tc_prefill"] > 0
+                and routes["split_decode"] > 0
+                and routes["tc_prefill"] + routes["split_decode"]
+                == launches["flash_attention"],
+                f"{arch}: attention routes on serve {routes}")
     out = {"arch": arch, "params": sum(
         t.numel() for t in torch.utils._pytree.tree_leaves(params)),
            "param_bytes": _tree_bytes(params),
@@ -1395,7 +1505,8 @@ def serve_one(arch: str, scratch: Path) -> dict:
            "tokens_equal": True, "last_logits_equal": True,
            "logits_finite": True,
            "first_tokens": clean["tokens"][0, :8].tolist(),
-           "launches": launches, "resume_launches": resume_launches}
+           "launches": launches, "attention_routes": routes,
+           "resume_launches": resume_launches}
     del clean, resumed
     if on_card:
         out["decode_trace"] = decode_trace(cfg, params, dev,
@@ -1414,12 +1525,15 @@ def phase_serve(results: dict, scratch: Path) -> dict:
     metrics.install()
     _reset_counts()
     models = [serve_one(arch, scratch) for arch in SERVE_ARCHS]
-    launches = _counts()
+    launches, routes = _counts(), _attn_routes()
+    require(routes["scalar"] == 0,
+            f"the bf16 serve path reached the scalar attention: {routes}")
     results["serve_launches"] = launches
     return {"phase": "serve", "batch": SERVE_BATCH,
             "prompt_len": SERVE_PROMPT, "gen_tokens": SERVE_GEN,
             "cp_freq": SERVE_CP_FREQ, "fail_at_token": SERVE_FAIL_AT,
-            "models": models, "launches": launches}
+            "models": models, "launches": launches,
+            "attention_routes": routes}
 
 
 # ---------------------------------------------------------------- report

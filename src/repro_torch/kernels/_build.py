@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -34,8 +34,14 @@ SIGNATURES = {
     "xor_parity": {"craft_xor_reduce": [_VOIDP, _VOIDP, _LL, _LL, _VOIDP]},
     "rs_erasure": {"craft_gf_matmul": [_VOIDP, _VOIDP, _VOIDP, _INT, _INT,
                                        _LL, _VOIDP]},
-    "flash_attention": {"craft_flash_attention": [_VOIDP] * 4 + [_INT] * 6
-                        + [_LL] * 9 + [_FLOAT] + [_INT] * 5 + [_VOIDP]},
+    "flash_attention": {
+        "craft_flash_attention": [_VOIDP] * 4 + [_INT] * 6 + [_LL] * 9
+        + [_FLOAT] + [_INT] * 5 + [_VOIDP],
+        "craft_flash_prefill_tc": [_VOIDP] * 4 + [_INT] * 6 + [_LL] * 9
+        + [_FLOAT] + [_INT] * 4 + [_VOIDP],
+        "craft_flash_decode": [_VOIDP] * 6 + [_INT] * 5 + [_LL] * 9
+        + [_FLOAT] + [_INT] * 9 + [_VOIDP],
+    },
     "ssm_scan": {
         "craft_ssd_scan": [_VOIDP] * 8 + [_INT] * 5 + [_LL] * 12
         + [_INT, _VOIDP],
@@ -132,10 +138,13 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches`` (rank threads launch concurrently)."""
+def count_launch(wrapper, route: Optional[str] = None) -> None:
+    """Add one to ``wrapper.launches`` and, where the wrapper has routes, to
+    ``wrapper.routes[route]`` (rank threads launch concurrently)."""
     with _count_lock:
         wrapper.launches += 1
+        if route is not None:
+            wrapper.routes[route] += 1
 
 
 def check(rc: int, what: str) -> None:

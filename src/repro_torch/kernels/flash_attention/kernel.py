@@ -1,19 +1,32 @@
-"""Hand-written CUDA attention kernel (``csrc/flash_attention.cu``) and its
-wrapper.
+"""Hand-written CUDA attention kernels (``csrc/flash_attention.cu``) and
+their wrapper.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention/kernel.py::
 flash_attention``: blocked attention forward with an online softmax and
 float32 accumulation, GQA, causal / sliding-window / ``q_offset`` /
-``kv_len`` masks, fully masked rows giving 0.  Every argument is a run-time
-value (one build serves prefill and decode); the ragged edge is masked in
-the kernel, so nothing is padded.  See the source for the design.
+``kv_len`` masks, fully masked rows giving 0.  The ragged edge is masked
+in the kernels, so nothing is padded.  See the source for the design.
 
-``flash_attention_cuda.launches`` counts the kernel launches of this
-process.
+Three routes, picked by :func:`choose_route` from the dtype and the shape
+alone (a route that fails to build or launch raises):
+
+- ``tc_prefill``: bf16 with more than :data:`DECODE_ROWS` rows of (query,
+  group head), D a multiple of 16 up to 128 — tensor cores (mma.sync).
+- ``split_decode``: at most :data:`DECODE_ROWS` such rows, float32 or bf16,
+  D a multiple of 16 — one block per (batch, kv head, split of the keys),
+  the split count from :func:`decode_splits`, then a combine kernel.
+- ``scalar``: float32 prefill and any D not a multiple of 16 — scalar
+  fp32 FMAs.
+
+``flash_attention_cuda.launches`` counts the wrapper calls that launched
+(one per call, whatever the route), ``flash_attention_cuda.routes`` the
+calls of each route.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -21,11 +34,64 @@ from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 D_MAX = 128
+ROUTES = ("tc_prefill", "split_decode", "scalar")
+DECODE_ROWS = 64         # rows (Lq * group) of one split_decode block
+DECODE_TILE = 64         # keys a split_decode block stages at a time
+BLOCKS_PER_SM = 2        # split_decode blocks the split count aims for
+H100_SMS = 132
+
+
+def choose_route(dtype: torch.dtype, lq: int, group: int, d: int) -> str:
+    """The kernel route for q of ``dtype`` with ``lq`` rows, ``group`` q
+    heads per kv head and head dim ``d``."""
+    if d % 16 or d > D_MAX:
+        return "scalar"
+    if lq * group <= DECODE_ROWS:
+        return "split_decode"
+    return "tc_prefill" if dtype == torch.bfloat16 else "scalar"
+
+
+def key_range(lq: int, lk: int, causal: bool, window: Optional[int],
+              q_offset: int, kv_len: Optional[int]) -> Tuple[int, int]:
+    """``[k_begin, k_end)``: the keys that some query row of ``q_offset ..
+    q_offset + lq - 1`` may see (empty when ``k_end == k_begin``)."""
+    k_end = lk if kv_len is None else min(lk, kv_len)
+    if causal:
+        k_end = min(k_end, q_offset + lq)
+    k_begin = max(0, q_offset - window + 1) if window else 0
+    return k_begin, max(k_begin, k_end)
+
+
+def decode_splits(batch: int, hkv: int, n_keys: int,
+                  sms: int = H100_SMS) -> Tuple[int, int]:
+    """``(splits, split_len)`` of the split-KV decode over ``n_keys`` keys:
+    enough splits that ``batch * hkv * splits`` blocks give every SM about
+    :data:`BLOCKS_PER_SM`, each split a whole number of
+    :data:`DECODE_TILE`-key tiles, and no split empty."""
+    tiles = max(1, math.ceil(n_keys / DECODE_TILE))
+    want = max(1, math.ceil(BLOCKS_PER_SM * sms / (batch * hkv)))
+    per = math.ceil(tiles / min(tiles, want))
+    return math.ceil(tiles / per), per * DECODE_TILE
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _rows_view(x: torch.Tensor) -> torch.Tensor:
     """``x`` with a contiguous last axis (a copy only where it is not)."""
     return x if x.stride(-1) == 1 else x.contiguous()
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with a contiguous last axis and a 16-byte aligned base and
+    strides, as the 16-byte copies need (a copy only where it is not)."""
+    es = x.element_size()
+    ok = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+          and all(s * es % 16 == 0 for s, n in zip(x.stride()[:-1],
+                                                   x.shape[:-1]) if n > 1))
+    return x if ok else x.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention_cuda(
@@ -36,8 +102,9 @@ def flash_attention_cuda(
 ) -> torch.Tensor:
     """Attention of CUDA tensors q (B, Hq, Lq, D), k/v (B, Hkv, Lk, D), all
     float32 or all bfloat16, D <= 128; returns (B, Hq, Lq, D) in q's dtype.
-    Any strides of the batch, head and row axes are taken as they are.
-    Raises for tensors that are not on a CUDA device."""
+    Any strides of the batch, head and row axes are taken (copied where
+    the route's 16-byte copies need alignment).  Raises for tensors that
+    are not on a CUDA device."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention_cuda: CUDA tensor expected "
@@ -68,21 +135,58 @@ def flash_attention_cuda(
         raise ValueError(f"flash_attention_cuda: kv_len {kv_len} must be "
                          f">= 0 and window {window} None or > 0")
     window = 0 if window is None else int(window)      # 0: no window
-    q, k, v = _rows_view(q), _rows_view(k), _rows_view(v)
     out = torch.empty((b, hq, lq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    lib = _build.load("flash_attention")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.craft_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, hq, hkv, lq, lk, d, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], float(sm_scale), int(bool(causal)), window,
-            int(q_offset), kv_len, _DTYPES[q.dtype], stream)
-    _build.check(rc, "flash_attention_cuda")
-    _build.count_launch(flash_attention_cuda)
+    route = choose_route(q.dtype, lq, hq // hkv, d)
+    _launch(route, q, k, v, out, causal=bool(causal), window=window,
+            sm_scale=float(sm_scale), q_offset=int(q_offset), kv_len=kv_len)
     return out
 
 
+def _launch(route: str, q, k, v, out, *, causal: bool, window: int,
+            sm_scale: float, q_offset: int, kv_len: int) -> None:
+    """Launch ``route``'s kernel(s) on checked arguments and count it."""
+    b, hq, lq, d = q.shape
+    _, hkv, lk, _ = k.shape
+    lib = _build.load("flash_attention")
+    if route == "scalar":
+        q, k, v = _rows_view(q), _rows_view(k), _rows_view(v)
+    else:
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if route == "scalar":
+            rc = lib.craft_flash_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b, hq, hkv, lq, lk, d, *strides, sm_scale, int(causal),
+                window, q_offset, kv_len, _DTYPES[q.dtype], stream)
+        elif route == "tc_prefill":
+            rc = lib.craft_flash_prefill_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b, hq, hkv, lq, lk, d, *strides, sm_scale, int(causal),
+                window, q_offset, kv_len, stream)
+        elif route == "split_decode":
+            k_begin, k_end = key_range(lq, lk, causal, window or None,
+                                       q_offset, kv_len)
+            splits, split_len = decode_splits(
+                b, hkv, k_end - k_begin, _sm_count(q.device.index))
+            # float32 partials: o (B, Hkv, splits, rows, D), then (m, l)
+            n_o = b * hkv * splits * lq * (hq // hkv) * d
+            part = torch.empty(n_o + 2 * n_o // d, dtype=torch.float32,
+                               device=q.device)
+            rc = lib.craft_flash_decode(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                part.data_ptr(), part.data_ptr() + 4 * n_o, b, hq, hkv, lq, d,
+                *strides, sm_scale, int(causal), window, q_offset,
+                min(lk, kv_len), k_begin, k_end, split_len, splits,
+                _DTYPES[q.dtype], stream)
+        else:
+            raise ValueError(f"flash_attention_cuda: unknown route {route}")
+    _build.check(rc, f"flash_attention_cuda ({route})")
+    _build.count_launch(flash_attention_cuda, route)
+
+
 flash_attention_cuda.launches = 0
+flash_attention_cuda.routes = dict.fromkeys(ROUTES, 0)

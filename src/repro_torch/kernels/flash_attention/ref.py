@@ -9,6 +9,10 @@ a sliding ``window`` (key positions in ``(q_pos - window, q_pos]``) and a
 The scores are materialized a slab of query rows at a time, so memory
 stays bounded at the serving path's full size (danube's prefill would need
 17 GB of float32 scores at once); each row's arithmetic is the reference's.
+
+:func:`attention_split_ref` is the split-KV decode route's arithmetic
+written plainly: per split of the keys, the partials (o, m, l) in base 2,
+then their combination.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from typing import Optional
 import torch
 
 _SCORES = 1 << 27            # float32 score elements held at once (512 MiB)
+_LOG2E = 1.4426950408889634
 
 
 def attention_ref(
@@ -62,3 +67,62 @@ def attention_ref(
                         p / torch.where(denom == 0, 1.0, denom), 0.0)
         out[:, :, :, i0:i0 + n] = torch.einsum("bhgqk,bhkd->bhgqd", p, vf)
     return out.reshape(b, hq, lq, dv).to(q.dtype)
+
+
+def attention_split_ref(
+    q: torch.Tensor,                   # (B, Hq, Lq, D)
+    k: torch.Tensor,                   # (B, Hkv, Lk, D)
+    v: torch.Tensor,                   # (B, Hkv, Lk, D)
+    *,
+    k_begin: int,
+    k_end: int,
+    split_len: int,
+    causal: bool = True,
+    window: Optional[int] = None,
+    sm_scale: Optional[float] = None,
+    q_offset: int = 0,
+    kv_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Attention as the split-KV decode computes it, in float32.  The keys
+    ``[k_begin, k_end)`` (every key a row may see) are cut into splits of
+    ``split_len``.  Split s gives, per row, base-2 scores ``x = q.k *
+    scale * log2 e`` (masked: -inf), ``m_s = max x``, ``l_s = sum 2^(x -
+    m_s)`` and ``o_s = sum 2^(x - m_s) v`` (``m_s`` read as 0 where it is
+    -inf, so a split with no visible key gives l = o = 0).  The combine:
+    ``M = max m_s``, ``w_s = 2^(m_s - M)``, ``out = sum w_s o_s / sum w_s
+    l_s``, and 0 where no split saw a key."""
+    b, hq, lq, d = q.shape
+    _, hkv, lk, _ = k.shape
+    group = hq // hkv
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    k_lim = lk if kv_len is None else min(lk, kv_len)
+    qf = q.float().reshape(b, hkv, group, lq, d)
+    qpos = q_offset + torch.arange(lq, device=q.device)[:, None]
+    ms, ls, os_ = [], [], []
+    for s0 in range(k_begin, k_end, split_len):
+        kpos = torch.arange(s0, min(s0 + split_len, k_end),
+                            device=q.device)[None, :]
+        kf = k[:, :, kpos[0]].float()
+        vf = v[:, :, kpos[0]].float()
+        x = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf) * (sm_scale * _LOG2E)
+        mask = kpos < k_lim
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if window is not None:
+            mask = mask & (kpos > qpos - window)
+        x = x.masked_fill(~mask, float("-inf"))
+        m = x.amax(dim=-1)
+        p = torch.exp2(x - torch.where(m == float("-inf"), 0.0, m)[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        os_.append(torch.einsum("bhgqk,bhkd->bhgqd", p, vf))
+    if not ms:
+        return torch.zeros_like(q)
+    m = torch.stack(ms)
+    m_max = m.amax(dim=0)
+    w = torch.exp2(m - torch.where(m_max == float("-inf"), 0.0, m_max))
+    den = (w * torch.stack(ls)).sum(dim=0)[..., None]
+    num = (w[..., None] * torch.stack(os_)).sum(dim=0)
+    out = torch.where(den > 0, num / torch.where(den > 0, den, 1.0), 0.0)
+    return out.reshape(b, hq, lq, d).to(q.dtype)

@@ -20,6 +20,7 @@ from repro_torch.core import Box, Checkpoint, CraftEnv
 from repro_torch.kernels.checksum import ops as ck_ops
 from repro_torch.kernels.checksum.kernel import checksum_rows
 from repro_torch.kernels.checksum.ref import checksum_rows_ref
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rs_erasure import ops as rs_ops
@@ -33,6 +34,7 @@ from repro_torch.kernels.xor_parity.kernel import xor_reduce_cuda
 from repro_torch.kernels.xor_parity.ref import xor_reduce_ref
 from repro_torch.launch import serve
 from repro_torch.models import model as M
+from repro_torch.train import steps as S
 
 pytestmark = pytest.mark.cuda
 
@@ -150,21 +152,40 @@ def test_rs_encode_lose_two_decode_on_the_card(cuda):
 
 # ------------------------------------------------------------ LM kernels
 FLASH_CASES = [
-    # (b, hq, hkv, lq, lk, d, causal, window, q_offset, kv_len)
-    (1, 2, 2, 128, 128, 64, True, None, 0, None),      # group 1
-    (2, 8, 2, 100, 260, 80, True, None, 160, None),    # group 4, ragged
-    (1, 4, 1, 70, 70, 128, True, 16, 0, None),         # window
-    (2, 4, 4, 64, 200, 80, False, None, 0, 137),       # kv_len
-    (1, 8, 2, 1, 300, 80, True, None, 250, 251),       # decode, growing
-    (1, 8, 2, 1, 64, 80, False, None, 0, 40),          # decode, rolling
-    (1, 2, 2, 64, 64, 32, True, 8, 0, 4),              # fully masked rows
+    # (b, hq, hkv, lq, lk, d, causal, window, q_offset, kv_len, route);
+    # route "prefill": tc_prefill in bfloat16, scalar in float32
+    (1, 2, 2, 128, 128, 64, True, None, 0, None, "prefill"),       # group 1
+    (2, 8, 2, 100, 260, 80, True, None, 160, None, "prefill"),     # ragged
+    (1, 4, 1, 70, 70, 128, True, 16, 0, None, "prefill"),          # window
+    (2, 4, 4, 64, 200, 80, False, None, 0, 137, "split_decode"),   # kv_len
+    (1, 8, 2, 1, 300, 80, True, None, 250, 251, "split_decode"),   # growing
+    (1, 8, 2, 1, 64, 80, False, None, 0, 40, "split_decode"),      # rolling
+    (1, 2, 2, 64, 64, 32, True, 8, 0, 4, "split_decode"),          # masked
+    # the routes and their edges
+    (1, 2, 1, 200, 200, 16, True, None, 0, None, "prefill"),       # D 16
+    (1, 2, 2, 300, 300, 128, True, None, 0, None, "prefill"),      # D 128
+    (2, 4, 2, 333, 517, 80, True, None, 184, None, "prefill"),     # ragged
+    (1, 4, 2, 257, 400, 64, True, 100, 143, None, "prefill"),      # window
+    (1, 4, 4, 200, 300, 80, False, 50, 0, 230, "prefill"),         # no causal
+    (2, 2, 2, 140, 140, 64, True, 8, 0, 4, "prefill"),             # masked
+    (1, 2, 2, 100, 100, 40, True, None, 0, None, "scalar"),        # D 40
+    (1, 4, 2, 1, 40, 40, True, None, 39, 40, "scalar"),            # D 40
+    (1, 2, 1, 1, 1, 64, True, None, 0, 1, "split_decode"),         # kv_len 1
+    (2, 8, 8, 1, 64, 64, True, None, 63, 64, "split_decode"),      # 64
+    (1, 32, 8, 1, 4096, 80, False, None, 0, 4096, "split_decode"),
+    (1, 32, 32, 1, 8224, 80, True, None, 8223, 8224, "split_decode"),
+    (1, 1, 1, 64, 200, 64, True, 16, 100, None, "split_decode"),   # a split
+    (1, 2, 1, 1, 64, 64, False, None, 0, 0, "split_decode"),       # no key
+    (1, 4, 1, 16, 600, 128, True, 300, 580, None, "split_decode"),  # 64 rows
 ]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_attention_matches_plain(cuda, case, dtype):
-    b, hq, hkv, lq, lk, d, causal, window, q_offset, kv_len = case
+    b, hq, hkv, lq, lk, d, causal, window, q_offset, kv_len, route = case
+    if route == "prefill":
+        route = "tc_prefill" if dtype == torch.bfloat16 else "scalar"
     g = torch.Generator(device=cuda).manual_seed(lq * 7 + lk)
     q = torch.randn((b, lq, hq, d), generator=g, device=cuda,
                     dtype=dtype).transpose(1, 2)          # strided q
@@ -172,14 +193,50 @@ def test_flash_attention_matches_plain(cuda, case, dtype):
     v = torch.randn((b, hkv, lk, d), generator=g, device=cuda, dtype=dtype)
     kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
     launches = flash_attention_cuda.launches
+    routes = dict(flash_attention_cuda.routes)
     out = flash_attention_cuda(q, k, v, **kw)
     torch.cuda.synchronize()
     assert flash_attention_cuda.launches == launches + 1
+    assert {r: n - routes[r] for r, n in flash_attention_cuda.routes.items()
+            } == {r: int(r == route) for r in routes}
     ref = attention_ref(q, k, v, **kw)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
     if kv_len == 4:                 # rows past kv_len + window see no key
         assert not bool(out[:, :, 12:].any())
+    if kv_len == 0:
+        assert not bool(out.any())
+    if route == "split_decode":
+        k_begin, k_end = fa_kernel.key_range(lq, lk, causal, window,
+                                             q_offset, kv_len)
+        splits, _ = fa_kernel.decode_splits(
+            b, hkv, k_end - k_begin, fa_kernel._sm_count(cuda.index or 0))
+        if kv_len in (1, 64):
+            assert splits == 1
+        if kv_len in (4096, 8224):
+            assert splits > 1
+
+
+def test_flash_attention_copies_a_misaligned_q(cuda):
+    """A q whose rows do not start on 16 bytes is copied, not sent to
+    another route."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    buf = torch.randn((2, 4, 160, 81), generator=g, device=cuda,
+                      dtype=torch.bfloat16)
+    q = buf[..., 1:]
+    k = torch.randn((2, 2, 160, 80), generator=g, device=cuda,
+                    dtype=torch.bfloat16)
+    v = torch.randn_like(k)
+    for lq in (160, 1):
+        routes = dict(flash_attention_cuda.routes)
+        out = flash_attention_cuda(q[:, :, :lq], k, v, causal=True,
+                                   q_offset=160 - lq)
+        want = "tc_prefill" if lq > 1 else "split_decode"
+        assert flash_attention_cuda.routes[want] == routes[want] + 1
+        ref = attention_ref(q[:, :, :lq], k, v, causal=True,
+                            q_offset=160 - lq)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                                   atol=2e-2)
 
 
 def _scan_inputs(cuda, shape, dtype, seed, mamba2=True):
@@ -270,3 +327,40 @@ def test_tiny_serve_on_the_card_equals_cpu(cuda, arch):
             "falcon-mamba-7b": (2,)}[arch]
     for i in used:
         assert after[i] > before[i]
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "zamba2-2.7b"])
+def test_tiny_bf16_logits_on_the_card_match_cpu(cuda, arch):
+    """bf16 TINY prefill of 80 tokens (tc_prefill: 80 or more rows) and 40
+    decode steps past danube's 32-slot window (split_decode) on the card
+    against the CPU's plain versions, both fed the CPU's greedy tokens:
+    logits within 0.15, the bf16 bound of test_torch_models.py (the two
+    devices round bf16 at other places); the scalar route never runs."""
+    cfg = get_config(arch, tiny=True)
+    assert cfg.param_dtype == "bfloat16"
+    b, prompt, gen = 2, 80, 40
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    card_params = torch.utils._pytree.tree_map(lambda t: t.to(cuda), params)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (b, prompt), dtype=np.int32))
+    routes = dict(flash_attention_cuda.routes)
+    cpu_cache, cpu_log = S.make_prefill(cfg, b, prompt + gen, "cpu")(
+        params, tokens)
+    card_cache, card_log = S.make_prefill(cfg, b, prompt + gen, cuda)(
+        card_params, tokens.to(cuda))
+    decode = S.make_decode_step(cfg)
+    for i in range(gen + 1):
+        assert bool(torch.isfinite(card_log).all()), f"step {i}"
+        np.testing.assert_allclose(card_log.float().cpu().numpy(),
+                                   cpu_log.float().numpy(), rtol=0.15,
+                                   atol=0.15, err_msg=f"step {i}")
+        if i == gen:
+            break
+        nxt = torch.argmax(cpu_log, dim=-1).to(torch.int32)[:, None]
+        cpu_cache, cpu_log = decode(params, cpu_cache, nxt, prompt + i)
+        card_cache, card_log = decode(card_params, card_cache, nxt.to(cuda),
+                                      prompt + i)
+    used = {r: n - routes[r] for r, n in flash_attention_cuda.routes.items()}
+    assert used["scalar"] == 0
+    assert used["tc_prefill"] > 0 and used["split_decode"] > 0
+    assert used["split_decode"] == gen * used["tc_prefill"]

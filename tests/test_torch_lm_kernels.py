@@ -29,9 +29,11 @@ from repro.kernels.ssm_scan.ref import s6_scan_ref
 from repro.kernels.ssm_scan.ref import ssd_scan_ref
 from repro.models.ssm import _fused_ssd_scan
 
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                     attention_split_ref)
 from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.kernels.ssm_scan.kernel import s6_scan_cuda, ssd_scan_cuda
 from repro_torch.kernels.ssm_scan import ref as scan_ref
@@ -158,6 +160,142 @@ def test_ops_attention_refuses_other_devices():
     q = torch.zeros((1, 1, 1, 8), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fa_ops.attention(q, q, q)
+
+
+# ------------------------------------------- split-KV decode arithmetic
+SPLIT_CASES = [
+    # (b, hq, hkv, lq, lk, d, causal, window, q_offset, kv_len, split_len)
+    (2, 8, 2, 1, 300, 80, True, None, 250, 251, 64),     # growing cache
+    (1, 8, 2, 1, 64, 80, False, None, 0, 40, 16),        # rolling slots
+    (1, 1, 1, 64, 200, 64, True, 16, 100, None, 64),     # masked splits
+    (1, 2, 2, 64, 64, 32, True, 8, 0, 4, 8),             # masked rows
+    (1, 2, 1, 1, 64, 64, False, None, 0, 0, 64),         # no key at all
+    (2, 4, 4, 16, 100, 16, True, 5, 40, None, 1),        # a key a split
+    (1, 8, 2, 1, 4096, 80, False, None, 0, 4096, 256),   # danube's step
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(i: int):
+    b, hq, hkv, lq, lk, d, causal, window, q_offset, kv_len, split_len = \
+        SPLIT_CASES[i]
+    rng = np.random.default_rng(300 + i)
+    q, tq = _both(rng.standard_normal((b, hq, lq, d)), "float32")
+    k, tk = _both(rng.standard_normal((b, hkv, lk, d)), "float32")
+    v, tv = _both(rng.standard_normal((b, hkv, lk, d)), "float32")
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    return (q, k, v), (tq, tk, tv), kw, split_len
+
+
+@pytest.mark.parametrize("i", range(len(SPLIT_CASES)))
+def test_split_decode_arithmetic_matches_both_references(i):
+    """The split-and-combine arithmetic against the port's plain attention
+    and the reference's jnp oracle (float32, 2e-5)."""
+    (q, k, v), (tq, tk, tv), kw, split_len = _split_case(i)
+    k_begin, k_end = fa_kernel.key_range(tq.shape[2], tk.shape[2], **kw)
+    got = attention_split_ref(tq, tk, tv, k_begin=k_begin, k_end=k_end,
+                              split_len=split_len, **kw)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(_np32(got), _np32(attention_ref(
+        tq, tk, tv, **kw)), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(_np32(got), _np32(jax_attention(q, k, v, **kw)),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_split_decode_masked_splits_and_rows_add_nothing():
+    """Row 0 of case 2 sees only the first split; case 3's rows past
+    kv_len + window see no key and give 0; case 4 (kv_len 0) is all 0."""
+    _, (tq, tk, tv), kw, split_len = _split_case(2)
+    k_begin, k_end = fa_kernel.key_range(64, 200, **kw)
+    assert (k_begin, k_end) == (85, 164) and k_end - k_begin > split_len
+    full = attention_split_ref(tq, tk, tv, k_begin=k_begin, k_end=k_end,
+                               split_len=split_len, **kw)
+    first = attention_split_ref(tq, tk, tv, k_begin=k_begin,
+                                k_end=k_begin + split_len,
+                                split_len=split_len, **kw)
+    assert torch.equal(full[:, :, 0], first[:, :, 0])
+    _, (tq, tk, tv), kw, split_len = _split_case(3)
+    out = attention_split_ref(tq, tk, tv, k_begin=0, k_end=4,
+                              split_len=split_len, **kw)
+    assert not bool(out[:, :, 12:].any()) and bool(out[:, :, :11].all())
+    _, (tq, tk, tv), kw, split_len = _split_case(4)
+    k_begin, k_end = fa_kernel.key_range(1, 64, **kw)
+    assert k_begin == k_end == 0
+    out = attention_split_ref(tq, tk, tv, k_begin=k_begin, k_end=k_end,
+                              split_len=split_len, **kw)
+    assert not bool(out.any()) and not bool(out.isnan().any())
+
+
+@pytest.mark.parametrize("dtype,lq,group,d,route", [
+    (torch.bfloat16, 8192, 4, 80, "tc_prefill"),     # danube prefill
+    (torch.bfloat16, 8192, 1, 80, "tc_prefill"),     # zamba2 prefill
+    (torch.bfloat16, 1, 4, 80, "split_decode"),      # danube decode
+    (torch.bfloat16, 1, 1, 80, "split_decode"),      # zamba2 decode
+    (torch.float32, 1, 4, 80, "split_decode"),
+    (torch.float32, 8192, 4, 80, "scalar"),          # float32 prefill
+    (torch.bfloat16, 16, 4, 64, "split_decode"),     # 64 rows
+    (torch.bfloat16, 17, 4, 64, "tc_prefill"),       # 68 rows
+    (torch.bfloat16, 65, 1, 16, "tc_prefill"),
+    (torch.bfloat16, 128, 2, 40, "scalar"),          # D not a multiple of 16
+    (torch.bfloat16, 1, 2, 40, "scalar"),
+    (torch.bfloat16, 128, 2, 128, "tc_prefill"),
+    (torch.bfloat16, 128, 2, 144, "scalar"),         # past D_MAX
+])
+def test_choose_route(dtype, lq, group, d, route):
+    assert fa_kernel.choose_route(dtype, lq, group, d) == route
+
+
+@pytest.mark.parametrize("args,want", [
+    # (lq, lk, causal, window, q_offset, kv_len) -> [k_begin, k_end)
+    ((1, 4096, False, None, 0, 4096), (0, 4096)),         # rolling, full
+    ((1, 4096, False, None, 0, 17), (0, 17)),             # rolling, filling
+    ((1, 8224, True, None, 8223, 8224), (0, 8224)),       # growing cache
+    ((8192, 8192, True, 4096, 0, None), (0, 8192)),       # danube prefill
+    ((64, 200, True, 16, 100, None), (85, 164)),
+    ((4, 100, True, 8, 50, 20), (43, 43)),                # nothing visible
+    ((1, 64, False, None, 0, 0), (0, 0)),
+])
+def test_key_range(args, want):
+    assert fa_kernel.key_range(*args) == want
+
+
+@pytest.mark.parametrize("batch,hkv,n_keys,want", [
+    (2, 8, 4096, (16, 256)),          # danube decode: 256 blocks
+    (2, 32, 8224, (5, 1664)),         # zamba2 decode: 320 blocks
+    (1, 1, 0, (1, 64)),
+    (1, 1, 1, (1, 64)),
+    (4, 4, 64, (1, 64)),
+    (600, 1, 100_000, (1, 100_032)),  # enough blocks without splitting
+])
+def test_decode_splits(batch, hkv, n_keys, want):
+    assert fa_kernel.decode_splits(batch, hkv, n_keys) == want
+
+
+@pytest.mark.parametrize("batch,hkv", [(1, 1), (2, 8), (2, 32), (4, 2),
+                                       (16, 8), (1, 300)])
+@pytest.mark.parametrize("n_keys", [1, 63, 64, 65, 1000, 4096, 8224,
+                                    70_000])
+def test_decode_splits_cover_the_keys_without_an_empty_split(batch, hkv,
+                                                             n_keys):
+    splits, split_len = fa_kernel.decode_splits(batch, hkv, n_keys, sms=132)
+    assert split_len % fa_kernel.DECODE_TILE == 0
+    assert splits * split_len >= n_keys > (splits - 1) * split_len
+    tiles = -(-n_keys // fa_kernel.DECODE_TILE)
+    # at least half the card's target of blocks, or one a tile (rounding
+    # the tiles a split takes up can halve the split count)
+    assert batch * hkv * splits >= min(
+        fa_kernel.BLOCKS_PER_SM * 132, batch * hkv * tiles) * 0.5
+
+
+def test_aligned_copies_only_what_the_16_byte_copies_cannot_read():
+    buf = torch.zeros((2, 5, 3, 81), dtype=torch.bfloat16)
+    permuted = torch.zeros((2, 7, 4, 80), dtype=torch.bfloat16).transpose(
+        1, 2)                                # the model's q: row stride H hd
+    assert fa_kernel._aligned(permuted) is permuted
+    shifted = buf[..., 1:]                   # base 2 bytes off, rows 162 B
+    fixed = fa_kernel._aligned(shifted)
+    assert fixed is not shifted and fixed.is_contiguous()
+    assert fixed.data_ptr() % 16 == 0 and torch.equal(fixed, shifted)
 
 
 # ======================================================== selective scans
