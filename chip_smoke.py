@@ -28,8 +28,11 @@ Phases, each printing one JSON line:
    bfloat16 on its route and on the scalar route beside the plain version
    and scaled_dot_product_attention, with the HMMA/HGMMA count of the
    built library (cuobjdump -sass); ssd_scan and s6_scan at
-   L = 1, ragged L, h0 != 0 and dt = 0 steps, then at (2, 8192, 80, 64, 64)
-   and (2, 8192, 8192, 16), timed beside the plain chunked scan.
+   L = 1, ragged L, h0 != 0 and dt = 0 steps on the sequential route and
+   at L = 1000 on the chunked one (each call's route checked against the
+   wrapper's rule), then at (2, 8192, 80, 64, 64) and (2, 8192, 8192, 16)
+   on both routes, timed beside the plain chunked scan, and a sweep of
+   both routes over L (64 to 2048 at B 2, and 8192 at B 16).
 3. main    — the paper's Listing-2 loop through ``repro_torch.core.Checkpoint``
    on the full parameter set of h2o-danube-1.8b (configs/h2o_danube_1p8b.py:
    24 layers, d_model 2560, 32/8 heads of 80, d_ff 6912, vocab 32000,
@@ -65,8 +68,10 @@ Phases, each printing one JSON line:
    at token 20; the resumed run must restart at token 16 and give the
    uninterrupted run's tokens, every logit finite, every attention call
    of the prefill on the tc_prefill route, of the decode on split_decode,
-   none on scalar.  Then a torch.profiler trace of a few decode steps: the
-   device's busy time and idle share.
+   none on scalar, and in each run every scan call of the prefill on the
+   chunked route and of the decode on the sequential one.  Then
+   torch.profiler traces of a few decode steps (the device's busy time and
+   idle share) and of one prefill (device seconds by kernel family).
 
 Each path phase (main, redundancy, aft, serve) sets the kernels' launch
 counts to 0 before it runs and reads them after.  Then the kernel table (JSON), the
@@ -397,6 +402,9 @@ def parity_kernels(cases: list, timing: dict, rand_words) -> None:
 # ---------------------------------------------------------------- LM kernels
 FLOPS_BF16 = 989e12              # H100 SXM dense bf16 tensor-core rate
 FLOPS_FP32 = 67e12               # H100 SXM non-tensor fp32 rate
+# exp2 on the special-function units: 16 a clock per SM (compute capability
+# 9.0), 132 SMs at the 1980 MHz boost clock
+EXP_PER_S = 16 * 132 * 1.98e9
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # as tests/test_kernels.py
 # (rtol, atol) of bf16 at the serving path's shapes: rows there attend to
 # up to 8224 keys, so |out| falls to about 0.02 and an atol of 2e-2 would
@@ -461,8 +469,11 @@ def lm_kernels(cases: list, timing: dict) -> None:
         _launch, choose_route, decode_splits, flash_attention_cuda,
         key_range)
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssm_scan.kernel import CHUNK as scan_chunk
     from repro_torch.kernels.ssm_scan.kernel import (
         s6_scan_cuda, ssd_scan_cuda)
+    from repro_torch.kernels.ssm_scan.kernel import \
+        choose_route as choose_scan_route
     from repro_torch.kernels.ssm_scan.ref import (
         chunked_scan_ref, s6_scan_ref, ssd_scan_ref)
 
@@ -648,18 +659,35 @@ def lm_kernels(cases: list, timing: dict) -> None:
                 randn(hs))
 
     scan_err = {"ssd_scan": 0.0, "s6_scan": 0.0}
+    wrappers = {"ssd_scan": ssd_scan_cuda, "s6_scan": s6_scan_cuda}
+
+    def scan_route(name, *args, **kw):
+        """The scan's result and the one route it was counted under."""
+        fn = wrappers[name]
+        r0 = dict(fn.routes)
+        out = fn(*args, **kw)
+        moved = [r for r in fn.routes if fn.routes[r] != r0[r]]
+        require(len(moved) == 1, f"{name}: routes {r0} -> {fn.routes}")
+        return out, moved[0]
+
+    # L = 1 and short L take the sequential route; L = 1000 (eight chunks,
+    # a ragged tail) the chunked one
     for mamba2, b, l, heads, st in [
         (True, 2, 1, (3, 64), 64), (True, 1, 37, (2, 64), 64),
         (True, 2, 160, (3, 16), 8), (True, 1, 33, (2, 16), 48),
+        (True, 2, 1000, (3, 64), 64), (True, 1, 1000, (2, 16), 48),
         (False, 1, 1, (64,), 16), (False, 2, 45, (100,), 16),
         (False, 2, 96, (256,), 8), (False, 1, 17, (64,), 40),
+        (False, 2, 1000, (100,), 16), (False, 1, 1000, (64,), 40),
     ]:
-        kernel = ssd_scan_cuda if mamba2 else s6_scan_cuda
         plain = ssd_scan_ref if mamba2 else s6_scan_ref
         name = "ssd_scan" if mamba2 else "s6_scan"
+        want = choose_scan_route(l, (b, *heads, st))
         for dtype in (torch.float32, torch.bfloat16):
             args = scan_inputs(mamba2, b, l, heads, st, dtype)
-            (y, h), (y_r, h_r) = kernel(*args), plain(*args)
+            (y, h), route = scan_route(name, *args)
+            require(route == want, f"{name} took {route} at L = {l}")
+            y_r, h_r = plain(*args)
             torch.cuda.synchronize()
             rtol, atol = SCAN_TOL[dt_name[dtype]]
             err = max(_err(y, y_r), _err(h, h_r))
@@ -669,57 +697,100 @@ def lm_kernels(cases: list, timing: dict) -> None:
                     f"{name} != plain on {(b, l, heads, st)} {dtype}: {err}")
             scan_err[name] = max(scan_err[name], err)
             cases.append({"case": f"{name} {(b, l, heads, st)}",
-                          "dtype": dt_name[dtype],
+                          "dtype": dt_name[dtype], "route": route,
                           "max_abs_err": {name: err}})
 
     # ---- the serving path's scan shapes (float32, B = 2, L = 8192), as the
     # models call them: zamba2 (80 heads of 64, state 64, one B/C group
-    # broadcast over the heads) and falcon-mamba-7b (8192 channels, state 16)
-    for name, mamba2, heads, st in (("ssd_scan", True, (80, 64), 64),
-                                    ("s6_scan", False, (8192,), 16)):
-        args = list(scan_inputs(mamba2, B, L, heads, st, torch.float32,
+    # broadcast over the heads) and falcon-mamba-7b (8192 channels, state
+    # 16); both routes on the same inputs, each against the plain scan
+    def path_args(mamba2, b, l, heads, st):
+        args = list(scan_inputs(mamba2, b, l, heads, st, torch.float32,
                                 dt_zero=False))
         args[3] = args[3] * 0.05          # softplus(-4 + ...)-sized steps
         if mamba2:
-            nh = heads[0]
-            args[1] = args[1][:, :, :1].expand(-1, -1, nh, -1)
-            args[2] = args[2][:, :, :1].expand(-1, -1, nh, -1)
-        kernel = ssd_scan_cuda if mamba2 else s6_scan_cuda
-        (y, h), (y_r, h_r) = kernel(*args), chunked_scan_ref(*args)
+            args[1] = args[1][:, :, :1].expand(-1, -1, heads[0], -1)
+            args[2] = args[2][:, :, :1].expand(-1, -1, heads[0], -1)
+        return args
+
+    for name, mamba2, heads, st in (("ssd_scan", True, (80, 64), 64),
+                                    ("s6_scan", False, (8192,), 16)):
+        kernel = wrappers[name]
+        args = path_args(mamba2, B, L, heads, st)
+        (y, h), route = scan_route(name, *args)
+        require(route == "chunked", f"{name} took {route} at the path shape")
+        y_r, h_r = chunked_scan_ref(*args)
         err = max(_err(y, y_r), _err(h, h_r))
         rtol, atol = SCAN_TOL_FULL
         require(torch.allclose(y, y_r, rtol=rtol, atol=atol)
                 and torch.allclose(h, h_r, rtol=rtol, atol=atol),
-                f"{name} != plain at the path's shape: {err}")
+                f"{name} (chunked) != plain at the path's shape: {err}")
+        (y, h), _ = scan_route(name, *args, route="sequential")
+        err_seq = max(_err(y, y_r), _err(h, h_r))
+        require(torch.allclose(y, y_r, rtol=rtol, atol=atol)
+                and torch.allclose(h, h_r, rtol=rtol, atol=atol),
+                f"{name} (sequential) != plain at the path's shape: "
+                f"{err_seq}")
         del y, h, y_r, h_r
         state = B * L * (heads[0] * heads[1] if mamba2 else heads[0]) * st
         if mamba2:
             # h = fma(decay, h, x * b) and y = fma(h, c, y): 5 flops a state
             # value and step; one exp a head and step
             flops = 5 * state + B * L * heads[0]
+            exps = B * L * heads[0]
             nbytes = 4 * (2 * args[0].numel() + 2 * B * L * st
                           + args[3].numel() + args[4].numel()
                           + 2 * args[5].numel())
         else:
             # exp(dt * A) adds a multiply and an exp: 7 a state value
             flops = 7 * state
+            exps = state
             nbytes = 4 * (3 * args[0].numel() + 2 * B * L * st
                           + args[4].numel() + 2 * args[5].numel())
-        t = {"shape": [list(a.shape) for a in args],
+        terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "fp32": flops / FLOPS_FP32 * 1e3,
+                 "exp": exps / EXP_PER_S * 1e3}
+        bound_by = max(terms, key=terms.get)
+        t = {"shape": [list(a.shape) for a in args], "route": route,
+             "chunk": scan_chunk,
              "ms": cuda_ms(lambda: kernel(*args), 5, 1),
+             # the sequential route (PR 13's kernel) on the same inputs
+             "sequential_ms": cuda_ms(
+                 lambda: kernel(*args, route="sequential"), 3, 1),
              "plain_ms": cuda_ms(lambda: chunked_scan_ref(*args), 3, 1),
              "plain": "ref.chunked_scan_ref (chunk 256)",
-             "bytes": nbytes, "flops": flops,
-             "max_abs_err": max(scan_err[name], err),
-             "full_shape_err": err, "library_ms": None,
+             "bytes": nbytes, "flops": flops, "exps": exps,
+             "bound_terms_ms": terms,
+             "bound_ms": terms[bound_by],
+             "bound_by": "bytes" if bound_by == "bytes" else "operations",
+             "bound_unit": bound_by,
+             "max_abs_err": max(scan_err[name], err, err_seq),
+             "full_shape_err": err, "full_shape_err_sequential": err_seq,
+             "library_ms": None,
              "library": "none: PyTorch has no selective scan"}
-        t["bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
-                            flops / FLOPS_FP32) * 1e3
-        t["bound_by"] = ("bytes" if nbytes / HBM_BYTES_PER_S
-                         >= flops / FLOPS_FP32 else "operations")
         timing[name] = t
         del args
         torch.cuda.empty_cache()
+
+    # ---- where the chunked route starts to pay: both routes over L at the
+    # path's widths (B = 2), and at B = 16 for the full L
+    sweep = []
+    for name, mamba2, heads, st in (("ssd_scan", True, (80, 64), 64),
+                                    ("s6_scan", False, (8192,), 16)):
+        kernel = wrappers[name]
+        for b, l in ((2, 16), (2, 32), (2, 64), (2, 128), (2, 256),
+                     (2, 512), (2, 1024), (2, 2048), (16, 8192)):
+            args = path_args(mamba2, b, l, heads, st)
+            sweep.append({
+                "scan": name, "B": b, "L": l,
+                "rule": choose_scan_route(l, (b, *heads, st)),
+                "chunked_ms": cuda_ms(
+                    lambda: kernel(*args, route="chunked"), 5, 1),
+                "sequential_ms": cuda_ms(
+                    lambda: kernel(*args, route="sequential"), 5, 1)})
+            del args
+            torch.cuda.empty_cache()
+    timing["scan_sweep"] = sweep
 
 
 # ---------------------------------------------------------------- phase 3
@@ -798,6 +869,32 @@ def _reset_counts() -> None:
 
 def _attn_routes() -> dict:
     return dict(_wrappers()["flash_attention"].routes)
+
+
+SCANS = ("ssd_scan", "s6_scan")
+
+
+def _scan_routes() -> dict:
+    return {k: dict(_wrappers()[k].routes) for k in SCANS}
+
+
+def _scan_route_delta(r0: dict, r1: dict) -> dict:
+    return {k: _delta(r0[k], r1[k]) for k in SCANS}
+
+
+def _require_scan_routes(arch: str, run: str, routes: dict,
+                         decode_steps: int) -> None:
+    """One serve run's scan calls: one prefill (L = SERVE_PROMPT) of every
+    scan layer on the chunked route, ``decode_steps`` steps (L = 1) of
+    every scan layer on the sequential route."""
+    for k in SERVE_KERNELS[arch]:
+        if k not in SCANS:
+            continue
+        r = routes[k]
+        require(r["chunked"] > 0
+                and r["sequential"] == decode_steps * r["chunked"],
+                f"{arch} {run}: {k} routes {r} for one prefill and "
+                f"{decode_steps} decode steps")
 
 
 def phase_main(results: dict, scratch: Path) -> dict:
@@ -1401,6 +1498,56 @@ def decode_trace(cfg, params, dev, untraced_s: float) -> dict:
                             for n, (c, us) in top]}
 
 
+# kernel families of a prefill trace, by the first name fragment that matches
+PREFILL_FAMILIES = (("attention", ("flash",)),
+                    ("scan", ("ssd_", "s6_", "carry_kernel")),
+                    ("matmul", ("nvjet", "gemm", "cutlass", "sm90_")))
+
+
+def prefill_split(cfg, params, dev) -> dict:
+    """One prefill of the serve phase's batch traced with torch.profiler
+    (one untraced first): wall and device-busy seconds, device seconds by
+    kernel family (``PREFILL_FAMILIES``, the rest "other") and the six
+    kernels that take the most device time."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.steps import make_prefill
+
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)).to(dev)
+    prefill = make_prefill(cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, dev)
+    prefill(params, tokens)
+    torch_sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill(params, tokens)
+        torch_sync()
+        wall = time.perf_counter() - t0
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in ops):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    family: dict = {}
+    by_name: dict = {}
+    for e in ops:
+        us = e.time_range.elapsed_us()
+        fam = next((f for f, keys in PREFILL_FAMILIES
+                    if any(k in e.name for k in keys)), "other")
+        family[fam] = family.get(fam, 0.0) + us * 1e-6
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + us)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    return {"wall_s": wall, "device_busy_s": busy * 1e-6,
+            "device_s_by_family": family,
+            "top_kernels": [{"name": n[:80], "calls": c, "s": us * 1e-6}
+                            for n, (c, us) in top]}
+
+
 def serve_one(arch: str, scratch: Path) -> dict:
     """One full-size model through ``repro_torch.launch.serve.run``: an
     uninterrupted run, a run that checkpoints every 16 tokens and fails
@@ -1438,12 +1585,15 @@ def serve_one(arch: str, scratch: Path) -> dict:
     sc = serve.ServeConfig(arch=arch, tiny=SERVE_TINY, batch=SERVE_BATCH,
                            prompt_len=SERVE_PROMPT, gen_tokens=SERVE_GEN,
                            seed=SEED, device=DEVICE, cp_name="serve")
-    c0, r0 = _counts(), _attn_routes()
+    c0, r0, s0 = _counts(), _attn_routes(), _scan_routes()
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     clean = serve.run(sc, params=params)
     launches = _delta(c0, _counts())
     routes = _delta(r0, _attn_routes())
+    s1 = _scan_routes()
+    scan_routes = {"clean": _scan_route_delta(s0, s1)}
+    _require_scan_routes(arch, "clean", scan_routes["clean"], SERVE_GEN)
     peak = torch.cuda.max_memory_allocated() if on_card else None
     env = CraftEnv.capture({"CRAFT_CP_PATH": str(scratch / arch),
                             "CRAFT_TIER_CHAIN": "pfs",
@@ -1459,9 +1609,15 @@ def serve_one(arch: str, scratch: Path) -> dict:
     else:
         raise Failure(f"{arch}: the failing run did not fail")
     failing_s = time.perf_counter() - t0
-    w1, c1 = _tier_writes(), _counts()
+    w1, c1, s2 = _tier_writes(), _counts(), _scan_routes()
+    scan_routes["failing"] = _scan_route_delta(s1, s2)
+    _require_scan_routes(arch, "failing", scan_routes["failing"],
+                         SERVE_FAIL_AT)
     resumed = serve.run(ck, env=env, params=params)
     resume_launches = _delta(c1, _counts())
+    scan_routes["resumed"] = _scan_route_delta(s2, _scan_routes())
+    _require_scan_routes(arch, "resumed", scan_routes["resumed"],
+                         SERVE_GEN - SERVE_CP_FREQ)
     w2 = _tier_writes()
     require(clean["logits_finite"] and resumed["logits_finite"],
             f"{arch}: a logit was not finite")
@@ -1506,11 +1662,13 @@ def serve_one(arch: str, scratch: Path) -> dict:
            "logits_finite": True,
            "first_tokens": clean["tokens"][0, :8].tolist(),
            "launches": launches, "attention_routes": routes,
+           "scan_routes": scan_routes,
            "resume_launches": resume_launches}
     del clean, resumed
     if on_card:
         out["decode_trace"] = decode_trace(cfg, params, dev,
                                            out["decode_s_per_token"])
+        out["prefill_trace"] = prefill_split(cfg, params, dev)
     del params
     shutil.rmtree(scratch / arch, ignore_errors=True)
     gc.collect()
@@ -1533,7 +1691,7 @@ def phase_serve(results: dict, scratch: Path) -> dict:
             "prompt_len": SERVE_PROMPT, "gen_tokens": SERVE_GEN,
             "cp_freq": SERVE_CP_FREQ, "fail_at_token": SERVE_FAIL_AT,
             "models": models, "launches": launches,
-            "attention_routes": routes}
+            "attention_routes": routes, "scan_routes": _scan_routes()}
 
 
 # ---------------------------------------------------------------- report

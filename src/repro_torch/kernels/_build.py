@@ -47,6 +47,10 @@ SIGNATURES = {
         + [_INT, _VOIDP],
         "craft_s6_scan": [_VOIDP] * 8 + [_INT] * 4 + [_LL] * 8
         + [_INT, _VOIDP],
+        "craft_ssd_scan_chunked": [_VOIDP] * 10 + [_INT] * 6 + [_LL] * 12
+        + [_INT, _VOIDP],
+        "craft_s6_scan_chunked": [_VOIDP] * 10 + [_INT] * 5 + [_LL] * 8
+        + [_INT, _VOIDP],
     },
 }
 KERNELS = tuple(SIGNATURES)

@@ -4,16 +4,40 @@ their wrappers.
 Replace the Pallas TPU kernels ``repro/kernels/ssm_scan/kernel.py::
 ssd_scan`` (mamba2: scalar decay per head, state (hd, st) per batch row and
 head) and ``::s6_scan`` (mamba1: per-channel decay ``exp(dt ⊗ A)``, state
-(st,) per channel).  The time loop runs inside a block with the state in
-registers; L is a run-time argument (decode is L = 1) and nothing is
-padded.  See the source for the design.
+(st,) per channel).  L is a run-time argument (decode is L = 1) and nothing
+is padded.  Two routes each, picked by :func:`choose_route` from L and the
+shape alone (a route that fails to build or launch raises):
 
-``ssd_scan_cuda.launches`` and ``s6_scan_cuda.launches`` count the kernel
-launches of this process.
+- ``sequential``: one pass over time inside a block, the state in
+  registers; one launch.  Decode and short L.  Bound on the H100 by the
+  latency of one dependent step times L (160 or 256 blocks at the
+  serving widths, under a warp per scheduler).
+- ``chunked``: the time axis in chunks of :data:`CHUNK` steps that run at
+  once; three launches (each chunk's end state from 0, a carry over the
+  chunks, each chunk's outputs from its incoming state).  Bound on the
+  H100 by operations: mamba1's two exps a state value and step on the
+  special-function units, mamba2's FP32 instructions (PERF.md).  The
+  wrapper allocates the float32 scratch of the chunk states (h_in):
+  4 * B * ceil(L / Q) * (state values of one batch row) bytes, 168 MB for
+  zamba2-2.7b's call at B 2, L 8192 and 67 MB for falcon-mamba-7b's.
+
+Route threshold (:data:`CHUNKED_MIN_L`), from the sweep of both routes
+over L at the serving widths in ``chip_smoke.py`` (kernels phase,
+``scan_sweep``; PERF.md): mamba2 takes the chunked route from two chunks
+(256 steps) on: with one chunk it does the sequential kernel's work twice
+and is slower at L = 64 and 128.  mamba1's chunked passes step faster
+than its sequential kernel (MUFU ex2 against full-precision expf, the
+tiles copied ahead), so it wins from L = 64 on even as a single chunk.
+Decode (L = 1) always takes the sequential route: one launch a call.
+See the source for the design and the bounds.
+
+``ssd_scan_cuda.launches`` and ``s6_scan_cuda.launches`` count the wrapper
+calls that launched (one per call, whatever the route), ``.routes`` the
+calls of each route.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -21,6 +45,36 @@ from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ST_MAX = 128
+ROUTES = ("sequential", "chunked")
+CHUNK = 128                  # Q: steps a chunk of the chunked route
+# shortest L that takes the chunked route, by scan (see the module note)
+CHUNKED_MIN_L = {"ssd_scan": 2 * CHUNK, "s6_scan": 64}
+CHUNK_THREADS = 256          # mamba2 chunked: most threads a head
+CHUNK_ROWS = 4               # mamba2 chunked: state rows a thread
+_SPT = 16                    # state values of a row a thread holds
+
+
+def threads_per_row(st: int) -> int:
+    """Threads that share one state row of ``st`` values (16 each, rounded
+    up to a power of two), as the kernels split it."""
+    t = 1
+    while t * _SPT < st:
+        t *= 2
+    return t
+
+
+def choose_route(l: int, h0_shape: Sequence[int]) -> str:
+    """The scan route for ``l`` steps from a state of ``h0_shape``: (B, nh,
+    hd, st) for mamba2, (B, di, st) for mamba1."""
+    mamba2 = len(h0_shape) == 4
+    if l < CHUNKED_MIN_L["ssd_scan" if mamba2 else "s6_scan"]:
+        return "sequential"
+    if mamba2:
+        _, _, hd, st = h0_shape
+        if (hd % CHUNK_ROWS
+                or hd // CHUNK_ROWS * threads_per_row(st) > CHUNK_THREADS):
+            return "sequential"
+    return "chunked"
 
 
 def _check(what: str, dtx, bh, ch, dt, A, h0) -> None:
@@ -42,6 +96,13 @@ def _check(what: str, dtx, bh, ch, dt, A, h0) -> None:
         raise ValueError(f"{what}: state size {st} not in 1..{ST_MAX}")
 
 
+def _route(what: str, route: Optional[str], l: int, h0_shape) -> str:
+    route = choose_route(l, h0_shape) if route is None else route
+    if route not in ROUTES:
+        raise ValueError(f"{what}: route {route!r} not in {ROUTES}")
+    return route
+
+
 def _last_contiguous(x: torch.Tensor) -> torch.Tensor:
     return x if x.stride(-1) == 1 else x.contiguous()
 
@@ -50,13 +111,14 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32).contiguous()
 
 
-def ssd_scan_cuda(dtx, bh, ch, dt, A, h0) -> Tuple[torch.Tensor,
-                                                    torch.Tensor]:
+def ssd_scan_cuda(dtx, bh, ch, dt, A, h0, *, route: Optional[str] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """mamba2 scan of CUDA tensors.  dtx (B, L, nh, hd); bh/ch
     (B, L, nh, st) (stride-0 head axes accepted, as a broadcast of grouped
     B/C); dt (B, L, nh); A (nh,); h0 (B, nh, hd, st).  dtx, bh, ch float32
-    or bfloat16 (one type); dt, A, h0 are taken as float32.  Returns (y
-    (B, L, nh, hd) in dtx's dtype, h_last (B, nh, hd, st) float32)."""
+    or bfloat16 (one type); dt, A, h0 are taken as float32.  ``route``
+    names one of :data:`ROUTES` (default :func:`choose_route`).  Returns
+    (y (B, L, nh, hd) in dtx's dtype, h_last (B, nh, hd, st) float32)."""
     _check("ssd_scan_cuda", dtx, bh, ch, dt, A, h0)
     b, l, nh, hd = dtx.shape
     st = bh.shape[-1]
@@ -67,6 +129,7 @@ def ssd_scan_cuda(dtx, bh, ch, dt, A, h0) -> Tuple[torch.Tensor,
             f"ssd_scan_cuda: shapes dtx {tuple(dtx.shape)}, bh "
             f"{tuple(bh.shape)}, ch {tuple(ch.shape)}, dt {tuple(dt.shape)}, "
             f"A {tuple(A.shape)}, h0 {tuple(h0.shape)} do not agree")
+    route = _route("ssd_scan_cuda", route, l, h0.shape)
     dtx, bh, ch = (_last_contiguous(t) for t in (dtx, bh, ch))
     dt = dt.to(torch.float32)
     A, h0 = _f32(A), _f32(h0)
@@ -75,30 +138,42 @@ def ssd_scan_cuda(dtx, bh, ch, dt, A, h0) -> Tuple[torch.Tensor,
         return y, h0.clone()
     h_last = torch.empty((b, nh, hd, st), dtype=torch.float32,
                          device=dtx.device)
+    strides = (dtx.stride(0), dtx.stride(1), dtx.stride(2), bh.stride(0),
+               bh.stride(1), bh.stride(2), ch.stride(0), ch.stride(1),
+               ch.stride(2), dt.stride(0), dt.stride(1), dt.stride(2))
+    ptrs = (dtx.data_ptr(), bh.data_ptr(), ch.data_ptr(), dt.data_ptr(),
+            A.data_ptr(), h0.data_ptr(), y.data_ptr(), h_last.data_ptr())
     lib = _build.load("ssm_scan")
     with torch.cuda.device(dtx.device):
         stream = torch.cuda.current_stream(dtx.device).cuda_stream
-        rc = lib.craft_ssd_scan(
-            dtx.data_ptr(), bh.data_ptr(), ch.data_ptr(), dt.data_ptr(),
-            A.data_ptr(), h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-            b, l, nh, hd, st, dtx.stride(0), dtx.stride(1), dtx.stride(2),
-            bh.stride(0), bh.stride(1), bh.stride(2), ch.stride(0),
-            ch.stride(1), ch.stride(2), dt.stride(0), dt.stride(1),
-            dt.stride(2), _DTYPES[dtx.dtype], stream)
-    _build.check(rc, "ssd_scan_cuda")
-    _build.count_launch(ssd_scan_cuda)
+        if route == "chunked":
+            nc = -(-l // CHUNK)
+            states = torch.empty((b, nc, nh, hd, st), dtype=torch.float32,
+                                 device=dtx.device)
+            dsum = torch.empty((b, nc, nh), dtype=torch.float32,
+                               device=dtx.device)
+            rc = lib.craft_ssd_scan_chunked(
+                *ptrs, states.data_ptr(), dsum.data_ptr(), b, l, nh, hd, st,
+                CHUNK, *strides, _DTYPES[dtx.dtype], stream)
+        else:
+            rc = lib.craft_ssd_scan(*ptrs, b, l, nh, hd, st, *strides,
+                                    _DTYPES[dtx.dtype], stream)
+    _build.check(rc, f"ssd_scan_cuda ({route})")
+    _build.count_launch(ssd_scan_cuda, route)
     return y, h_last
 
 
 ssd_scan_cuda.launches = 0
+ssd_scan_cuda.routes = dict.fromkeys(ROUTES, 0)
 
 
-def s6_scan_cuda(dtx, bh, ch, dt, A, h0) -> Tuple[torch.Tensor,
-                                                   torch.Tensor]:
+def s6_scan_cuda(dtx, bh, ch, dt, A, h0, *, route: Optional[str] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """mamba1 scan of CUDA tensors.  dtx/dt (B, L, di); bh/ch (B, L, st);
     A (di, st); h0 (B, di, st).  dtx, bh, ch float32 or bfloat16 (one
-    type); dt, A, h0 are taken as float32.  Returns (y (B, L, di) in dtx's
-    dtype, h_last (B, di, st) float32)."""
+    type); dt, A, h0 are taken as float32.  ``route`` as in
+    :func:`ssd_scan_cuda`.  Returns (y (B, L, di) in dtx's dtype, h_last
+    (B, di, st) float32)."""
     _check("s6_scan_cuda", dtx, bh, ch, dt, A, h0)
     b, l, di = dtx.shape
     st = bh.shape[-1]
@@ -109,6 +184,7 @@ def s6_scan_cuda(dtx, bh, ch, dt, A, h0) -> Tuple[torch.Tensor,
             f"s6_scan_cuda: shapes dtx {tuple(dtx.shape)}, bh "
             f"{tuple(bh.shape)}, ch {tuple(ch.shape)}, dt {tuple(dt.shape)}, "
             f"A {tuple(A.shape)}, h0 {tuple(h0.shape)} do not agree")
+    route = _route("s6_scan_cuda", route, l, h0.shape)
     dtx, bh, ch = (_last_contiguous(t) for t in (dtx, bh, ch))
     dt = _last_contiguous(dt.to(torch.float32))
     A, h0 = _f32(A), _f32(h0)
@@ -116,18 +192,29 @@ def s6_scan_cuda(dtx, bh, ch, dt, A, h0) -> Tuple[torch.Tensor,
     if l == 0:
         return y, h0.clone()
     h_last = torch.empty((b, di, st), dtype=torch.float32, device=dtx.device)
+    strides = (dtx.stride(0), dtx.stride(1), bh.stride(0), bh.stride(1),
+               ch.stride(0), ch.stride(1), dt.stride(0), dt.stride(1))
+    ptrs = (dtx.data_ptr(), bh.data_ptr(), ch.data_ptr(), dt.data_ptr(),
+            A.data_ptr(), h0.data_ptr(), y.data_ptr(), h_last.data_ptr())
     lib = _build.load("ssm_scan")
     with torch.cuda.device(dtx.device):
         stream = torch.cuda.current_stream(dtx.device).cuda_stream
-        rc = lib.craft_s6_scan(
-            dtx.data_ptr(), bh.data_ptr(), ch.data_ptr(), dt.data_ptr(),
-            A.data_ptr(), h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-            b, l, di, st, dtx.stride(0), dtx.stride(1), bh.stride(0),
-            bh.stride(1), ch.stride(0), ch.stride(1), dt.stride(0),
-            dt.stride(1), _DTYPES[dtx.dtype], stream)
-    _build.check(rc, "s6_scan_cuda")
-    _build.count_launch(s6_scan_cuda)
+        if route == "chunked":
+            nc = -(-l // CHUNK)
+            states = torch.empty((b, nc, di, st), dtype=torch.float32,
+                                 device=dtx.device)
+            dsum = torch.empty((b, nc, di), dtype=torch.float32,
+                               device=dtx.device)
+            rc = lib.craft_s6_scan_chunked(
+                *ptrs, states.data_ptr(), dsum.data_ptr(), b, l, di, st,
+                CHUNK, *strides, _DTYPES[dtx.dtype], stream)
+        else:
+            rc = lib.craft_s6_scan(*ptrs, b, l, di, st, *strides,
+                                   _DTYPES[dtx.dtype], stream)
+    _build.check(rc, f"s6_scan_cuda ({route})")
+    _build.count_launch(s6_scan_cuda, route)
     return y, h_last
 
 
 s6_scan_cuda.launches = 0
+s6_scan_cuda.routes = dict.fromkeys(ROUTES, 0)

@@ -5,8 +5,10 @@ mamba1 vs mamba2 is inferred from the ranks, as in the reference's
 nothing else (a failed build or launch raises).  A CPU tensor goes to the
 plain chunked scan (``ref.chunked_scan_ref``, the reference model's
 ``_fused_ssd_scan``) with ``chunk`` steps per chunk, so the port's models
-on the CPU compute what the reference's do.  The kernel has no chunks: it
-is one sequential scan, and L = 1 is a decode step.
+on the CPU compute what the reference's do.  On the card the wrapper picks
+its route from L (``kernel.choose_route``): a decode step (L = 1) and
+short L run the sequential kernel, long L the chunked one, whose chunk
+length is the kernel's own (``kernel.CHUNK``), not ``chunk``.
 """
 from __future__ import annotations
 

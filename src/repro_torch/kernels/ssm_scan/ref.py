@@ -92,3 +92,64 @@ def chunked_scan_ref(dtx, bh, ch, dt, A, h0, chunk: int = 256):
     y = torch.cat(ys, dim=1) if ys else torch.empty(
         dtx.shape, dtype=torch.float32, device=dtx.device)
     return y, h
+
+
+def chunk_passes_ref(dtx, bh, ch, dt, A, h0, chunk: int):
+    """The chunked route's three passes (``csrc/ssm_scan.cu``), either
+    variant by the rank of ``dtx``, with chunks of ``chunk`` steps (one
+    chunk of L where ``chunk`` >= L; the ragged tail is padded with dt = 0
+    and dtx = 0 steps, which leave the state as it is):
+
+    1. each chunk's end state from 0, ``S_c = sum_j exp(A * sum_{k>j}
+       dt_k) * dtx_j (x) B_j``, and its sum of dt;
+    2. the carry, sequential over the chunks: ``h_in[c] = h``, ``h =
+       exp(A * sum_c dt) * h + S_c``; the last ``h`` is h_last;
+    3. each chunk's outputs: the recurrence replayed over its steps from
+       ``h_in[c]``.
+
+    Returns (y in dtx's dtype, h_last float32)."""
+    mamba2 = dtx.dim() == 4
+    b, l = dtx.shape[:2]
+    q = max(1, min(int(chunk), l))
+    nc = -(-l // q)
+
+    def chunks(x):
+        x = x.float()
+        pad = nc * q - l
+        if pad:
+            x = torch.cat([x, x.new_zeros((b, pad) + x.shape[2:])], dim=1)
+        return x.reshape((b, nc, q) + x.shape[2:])
+
+    x, bc, cc, dtc = (chunks(t) for t in (dtx, bh, ch, dt))
+    A = A.float()
+    # 1. chunk states: weights exp(A * (sum of dt after step j)), the sums
+    # taken from the chunk's end (a difference of prefix sums would cancel)
+    dsum = dtc.sum(dim=2)                                  # (b, nc, G)
+    sfx = torch.flip(torch.cumsum(torch.flip(dtc, [2]), dim=2), [2])
+    sfx = torch.cat([sfx[:, :, 1:], torch.zeros_like(sfx[:, :, :1])], dim=2)
+    if mamba2:
+        w = torch.exp(sfx * A)                             # (b, nc, q, nh)
+        states = torch.einsum("bcqh,bcqhd,bcqhs->bchds", w, x, bc)
+    else:
+        w = torch.exp(sfx[..., None] * A)                  # (b, nc, q, di, st)
+        states = torch.einsum("bcqds,bcqd,bcqs->bcds", w, x, bc)
+    # 2. carry over the chunks
+    h, h_in = h0.float(), []
+    for c in range(nc):
+        h_in.append(h)
+        decay = (torch.exp(dsum[:, c] * A)[..., None, None] if mamba2
+                 else torch.exp(dsum[:, c, :, None] * A))
+        h = decay * h + states[:, c]
+    # 3. outputs: every chunk replayed from its incoming state at once
+    hc, ys = torch.stack(h_in, dim=1), []
+    for t in range(q):
+        if mamba2:
+            decay = torch.exp(dtc[:, :, t] * A)[..., None, None]
+            hc = decay * hc + x[:, :, t, ..., None] * bc[:, :, t, :, None, :]
+            ys.append(torch.einsum("bchds,bchs->bchd", hc, cc[:, :, t]))
+        else:
+            decay = torch.exp(dtc[:, :, t, :, None] * A)
+            hc = decay * hc + x[:, :, t, :, None] * bc[:, :, t, None, :]
+            ys.append(torch.einsum("bcds,bcs->bcd", hc, cc[:, :, t]))
+    y = torch.stack(ys, dim=2).reshape((b, nc * q) + dtx.shape[2:])
+    return y[:, :l].to(dtx.dtype), h

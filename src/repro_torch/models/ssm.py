@@ -2,10 +2,11 @@
 
 The reference's ``repro/models/ssm.py:157-363`` on tensors.  Both scan
 call sites go through :func:`repro_torch.kernels.ssm_scan.ops.
-selective_scan`: the hand-written CUDA scan on the card (state in
-registers, one sequential pass), the plain chunked scan of the reference
-model (``_fused_ssd_scan``, ``cfg.ssm_chunk`` steps a chunk) on the CPU.
-Decode is the same call with L = 1.
+selective_scan`: the hand-written CUDA scans on the card (a chunked scan
+for a long prefill, one sequential pass with the state in registers for
+decode and short L), the plain chunked scan of the reference model
+(``_fused_ssd_scan``, ``cfg.ssm_chunk`` steps a chunk) on the CPU.  Decode
+is the same call with L = 1.
 
 Recurrence (both variants):  h_t = a_t ⊙ h_{t-1} + b_t,
   a_t = exp(Δ_t A)        (elementwise decay)

@@ -27,8 +27,10 @@ from repro_torch.kernels.rs_erasure import ops as rs_ops
 from repro_torch.kernels.rs_erasure.kernel import gf_matmul_cuda
 from repro_torch.kernels.snapshot.kernel import snapshot_chunks_cuda
 from repro_torch.kernels.snapshot.ref import snapshot_ref
+from repro_torch.kernels.ssm_scan import kernel as scan_kernel
 from repro_torch.kernels.ssm_scan.kernel import s6_scan_cuda, ssd_scan_cuda
-from repro_torch.kernels.ssm_scan.ref import s6_scan_ref, ssd_scan_ref
+from repro_torch.kernels.ssm_scan.ref import (chunk_passes_ref, s6_scan_ref,
+                                              ssd_scan_ref)
 from repro_torch.kernels.xor_parity import ops as xor_ops
 from repro_torch.kernels.xor_parity.kernel import xor_reduce_cuda
 from repro_torch.kernels.xor_parity.ref import xor_reduce_ref
@@ -304,6 +306,93 @@ def test_s6_scan_matches_plain(cuda, shape, dtype):
     torch.testing.assert_close(h, h_r, rtol=tol, atol=tol)
 
 
+# (mamba2, shape without L, B/C one group broadcast over the heads)
+SCAN_ROUTE_CASES = [
+    (True, (2, 3, 64, 64), True),     # the path's layout; 2 + 1 heads a block
+    (True, (1, 4, 16, 48), False),    # st not a multiple of 16, 4 threads a row
+    (False, (2, 100, 16), None),      # a ragged block of 36 channels
+    (False, (1, 70, 40), None),       # st 40
+]
+
+
+def _route_args(cuda, case, l, dtype, seed):
+    mamba2, rest, bcast = case
+    args = list(_scan_inputs(cuda, (rest[0], l, *rest[1:]), dtype, seed,
+                             mamba2=mamba2))
+    if bcast:
+        args[1] = args[1][:, :, :1].expand_as(args[1])
+        args[2] = args[2][:, :, :1].expand_as(args[2])
+    return args, ssd_scan_cuda if mamba2 else s6_scan_cuda
+
+
+def _scan_counts(fn):
+    return fn.launches, dict(fn.routes)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", [1000, 4100])
+@pytest.mark.parametrize("case", SCAN_ROUTE_CASES)
+def test_chunked_scans_match_plain(cuda, case, l, dtype):
+    """Several chunks and a ragged tail, h0 != 0, dt = 0 steps: the
+    chunked route against the plain scan, one launch counted."""
+    args, fn = _route_args(cuda, case, l, dtype, l + len(case[1]))
+    launches, routes = _scan_counts(fn)
+    y, h = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == launches + 1
+    assert fn.routes["chunked"] == routes["chunked"] + 1
+    plain = ssd_scan_ref if case[0] else s6_scan_ref
+    y_r, h_r = plain(*[a.contiguous() for a in args])
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    assert y.dtype == dtype and h.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_r.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h, h_r, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("l", [1, 40])
+@pytest.mark.parametrize("case", SCAN_ROUTE_CASES)
+def test_short_scans_take_sequential(cuda, case, l):
+    args, fn = _route_args(cuda, case, l, torch.float32, 7)
+    launches, routes = _scan_counts(fn)
+    fn(*args)
+    assert fn.launches == launches + 1
+    assert fn.routes["sequential"] == routes["sequential"] + 1
+    assert fn.routes["chunked"] == routes["chunked"]
+
+
+@pytest.mark.parametrize("l", [300, 1000])
+@pytest.mark.parametrize("case", SCAN_ROUTE_CASES)
+def test_chunked_equals_sequential(cuda, case, l):
+    """Both routes, and the plain three passes, on the same inputs (a
+    ragged last chunk: 300 = 2 * 128 + 44, 1000 = 7 * 128 + 104)."""
+    args, fn = _route_args(cuda, case, l, torch.float32, 11)
+    y_s, h_s = fn(*args, route="sequential")
+    got = {"chunked": fn(*args, route="chunked"),
+           "chunk_passes_ref": chunk_passes_ref(*args,
+                                                chunk=scan_kernel.CHUNK)}
+    for what, (y, h) in got.items():
+        torch.testing.assert_close(y, y_s, rtol=1e-4, atol=1e-4,
+                                   msg=lambda m: f"{what} y: {m}")
+        torch.testing.assert_close(h, h_s, rtol=1e-4, atol=1e-4,
+                                   msg=lambda m: f"{what} h_last: {m}")
+
+
+def test_chunked_scan_takes_unaligned_views(cuda):
+    """dtx, B and C that start 4 bytes off a 16-byte boundary take the
+    element-wise copies; the result is the same as from aligned copies."""
+    args, fn = _route_args(cuda, SCAN_ROUTE_CASES[2], 600, torch.float32, 5)
+    shifted = []
+    for t in args[:3]:
+        buf = torch.empty(t.shape[:-1] + (t.shape[-1] + 1,), device=cuda)
+        buf[..., 1:] = t
+        shifted.append(buf[..., 1:])
+    assert shifted[0].data_ptr() % 16 == 4
+    y, h = fn(*shifted, *args[3:], route="chunked")
+    y_a, h_a = fn(*args, route="chunked")
+    torch.testing.assert_close(y, y_a, rtol=0, atol=0)
+    torch.testing.assert_close(h, h_a, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "zamba2-2.7b",
                                   "falcon-mamba-7b"])
 def test_tiny_serve_on_the_card_equals_cpu(cuda, arch):
@@ -327,6 +416,36 @@ def test_tiny_serve_on_the_card_equals_cpu(cuda, arch):
             "falcon-mamba-7b": (2,)}[arch]
     for i in used:
         assert after[i] > before[i]
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "falcon-mamba-7b"])
+def test_tiny_chunked_prefill_on_the_card_matches_cpu(cuda, arch):
+    """float32 TINY prefill of 300 tokens: every scan call on the chunked
+    route, the logits and the SSM states within 2e-4 of the CPU's plain
+    chunked scan (the bound of the float32 model tests)."""
+    tiny = get_config(arch, tiny=True).replace(param_dtype="float32")
+    b, prompt = 2, 300
+    params = M.init_params(torch.Generator().manual_seed(0), tiny, "cpu")
+    card_params = torch.utils._pytree.tree_map(lambda t: t.to(cuda), params)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, tiny.vocab, (b, prompt), dtype=np.int32))
+    fn = ssd_scan_cuda if arch == "zamba2-2.7b" else s6_scan_cuda
+    routes = dict(fn.routes)
+    cpu_cache, cpu_log = S.make_prefill(tiny, b, prompt + 1, "cpu")(
+        params, tokens)
+    card_cache, card_log = S.make_prefill(tiny, b, prompt + 1, cuda)(
+        card_params, tokens.to(cuda))
+    used = {r: n - routes[r] for r, n in fn.routes.items()}
+    assert used["chunked"] > 0 and used["sequential"] == 0
+    np.testing.assert_allclose(card_log.cpu().numpy(), cpu_log.numpy(),
+                               rtol=2e-4, atol=2e-4)
+    for (path, c), (_, g) in zip(
+            torch.utils._pytree.tree_flatten_with_path(cpu_cache)[0],
+            torch.utils._pytree.tree_flatten_with_path(card_cache)[0]):
+        if c.dtype == torch.float32:
+            np.testing.assert_allclose(g.cpu().numpy(), c.numpy(),
+                                       rtol=2e-4, atol=2e-4,
+                                       err_msg=str(path))
 
 
 @pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "zamba2-2.7b"])

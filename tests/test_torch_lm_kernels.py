@@ -34,10 +34,12 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      attention_split_ref)
+from repro_torch.kernels.ssm_scan import kernel as scan_kernel
 from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.kernels.ssm_scan.kernel import s6_scan_cuda, ssd_scan_cuda
 from repro_torch.kernels.ssm_scan import ref as scan_ref
-from repro_torch.kernels.ssm_scan.ref import chunked_scan_ref
+from repro_torch.kernels.ssm_scan.ref import (chunk_passes_ref,
+                                              chunked_scan_ref)
 
 # the reference's naive oracles, compiled (eager, their scans take seconds)
 jax_ssd, jax_s6 = jax.jit(ssd_scan_ref), jax.jit(s6_scan_ref)
@@ -411,3 +413,72 @@ def test_selective_scan_on_the_cpu_is_the_chunked_scan(mamba2):
     got = scan_ops.selective_scan(*tx, chunk=16)
     want = chunked_scan_ref(*tx, chunk=16)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("l,h0_shape,want", [
+    (1, (2, 80, 64, 64), "sequential"),          # a zamba2 decode step
+    (1, (2, 8192, 16), "sequential"),            # a falcon-mamba-7b one
+    (40, (2, 80, 64, 64), "sequential"),
+    (40, (2, 8192, 16), "sequential"),
+    (255, (2, 80, 64, 64), "sequential"),
+    (256, (2, 80, 64, 64), "chunked"),
+    (256, (1, 3, 16, 48), "chunked"),
+    (63, (2, 8192, 16), "sequential"),
+    (64, (2, 8192, 16), "chunked"),
+    (8192, (2, 80, 64, 64), "chunked"),          # the prefills
+    (8192, (2, 8192, 16), "chunked"),
+    (8192, (2, 2, 512, 128), "sequential"),      # 1024 threads a head
+    (8192, (2, 2, 30, 64), "sequential"),        # hd not a multiple of 4
+    (8192, (2, 2, 128, 128), "chunked"),
+])
+def test_scan_choose_route(l, h0_shape, want):
+    assert scan_kernel.choose_route(l, h0_shape) == want
+
+
+# (mamba2, (b, l, *heads, st), blk of the Pallas kernel, stride-0 heads)
+CHUNK_CASES = [
+    (True, (1, 37, 2, 8, 16), 16, False),       # ragged L, h0 != 0
+    (True, (2, 50, 3, 16, 8), 32, True),        # one B/C group, 3 heads
+    (False, (2, 45, 128, 8), 32, False),        # mamba1, ragged L
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _chunk_case(i: int):
+    """Seeded inputs (dt = 0 every fifth step, h0 != 0), the torch args
+    (B/C a stride-0 view over the heads where the case says so) and the
+    reference's naive and Pallas-interpret results."""
+    mamba2, shape, blk, bcast = CHUNK_CASES[i]
+    b, l, *heads, st = shape
+    arrs = _scan_np(40 + i, b, l, mamba2, tuple(heads), st)
+    if bcast:
+        for k in ("bh", "ch"):
+            arrs[k] = np.broadcast_to(arrs[k][:, :, :1], arrs[k].shape)
+    jx, tx = _scan_args(arrs)
+    if bcast:
+        tx[1], tx[2] = (t[:, :, :1].expand(t.shape) for t in tx[1:3])
+        assert tx[1].stride(2) == 0 and tx[2].stride(2) == 0
+    naive = (jax_ssd if mamba2 else jax_s6)(*jx)
+    pallas = jax_scan(*jx, blk=blk, interpret=True, use_pallas=True)
+    return l, tx, naive, pallas
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 16, "L", "L+5"])
+@pytest.mark.parametrize("i", range(len(CHUNK_CASES)))
+def test_chunk_passes_match_reference_and_pallas(i, chunk):
+    """The chunked route's three passes in plain PyTorch against the
+    reference's naive scan and its Pallas kernel in interpret mode, 1e-4."""
+    l, tx, naive, pallas = _chunk_case(i)
+    q = {"L": l, "L+5": l + 5}.get(chunk, chunk)
+    y, h = chunk_passes_ref(*tx, chunk=q)
+    assert y.dtype == torch.float32 and h.dtype == torch.float32
+    _close((y, h), naive, 1e-4)
+    _close((y, h), pallas, 1e-4)
+
+
+def test_chunk_passes_keep_the_state_over_zero_dt():
+    _, tx = _scan_args(_scan_np(6, 2, 20, False, (16,), 8, dt_zero=False))
+    dtx, bh, ch, dt, A, h0 = tx
+    y, h = chunk_passes_ref(torch.zeros_like(dtx), bh, ch,
+                            torch.zeros_like(dt), A, h0, chunk=8)
+    assert torch.equal(h, h0)
