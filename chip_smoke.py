@@ -32,7 +32,15 @@ Phases, each printing one JSON line:
    at L = 1000 on the chunked one (each call's route checked against the
    wrapper's rule), then at (2, 8192, 80, 64, 64) and (2, 8192, 8192, 16)
    on both routes, timed beside the plain chunked scan, and a sweep of
-   both routes over L (64 to 2048 at B 2, and 8192 at B 16).
+   both routes over L (64 to 2048 at B 2, and 8192 at B 16).  The
+   training path's use of them: the attention kernel's log-sum-exp on
+   tc_prefill and scalar (rows that see no key, kv_len 0, zamba2's train
+   shape (2, 32, 4096, 80)) against the plain one; the attention Function
+   (kernel forward, blocked backward) at zamba2's width (32 heads of 80,
+   L 2048; GQA 4 with a window at L 1024) in bf16 and float32, and the
+   scan Function, whose forward takes the chunked route at every L, at
+   both models' widths (80 x 64 x 64, 8192 x 16; L 1024, and L 40 in one
+   ragged chunk), against the plain versions' autograd in float32.
 3. main    — the paper's Listing-2 loop through ``repro_torch.core.Checkpoint``
    on the full parameter set of h2o-danube-1.8b (configs/h2o_danube_1p8b.py:
    24 layers, d_model 2560, 32/8 heads of 80, d_ff 6912, vocab 32000,
@@ -72,9 +80,27 @@ Phases, each printing one JSON line:
    chunked route and of the decode on the sequential one.  Then
    torch.profiler traces of a few decode steps (the device's busy time and
    idle share) and of one prefill (device seconds by kernel family).
+8. train — in a child process (``--phases train-child``, with
+   CUBLAS_WORKSPACE_CONFIG=:4096:8 and deterministic algorithms): zamba2-2.7b
+   at full width through ``repro_torch.launch.train.run``, bf16, B 2 x L
+   4096, seeded random weights, AdamW with 32-bit moments, per-block remat:
+   a run checkpointing every 3 steps (CRAFT_TIER_CHAIN=pfs,
+   CRAFT_DEVICE_SNAPSHOT=1, CRAFT_KEEP_VERSIONS=1; 23.4 GB a version) cut
+   after step 5, the resumed run (restart at 3, end at 6) and an
+   uninterrupted 6-step run: losses 4-6, parameters and optimizer state
+   torch.equal; every attention call on tc_prefill and every scan call
+   chunked, twice a block and step (remat); checksum and snapshot launched.
+   A traced train step splits its device time by family (hand forward
+   kernels, attention and scan backwards, cuBLAS matmuls, optimizer,
+   elementwise).  Then falcon-mamba-7b at full width, int8 moments, B 2 x
+   L 2048: three steps on one batch must lower the loss; a fourth, traced,
+   is split the same way.  Deterministic mode's NaN fill of new
+   allocations stays on, so an output that a kernel leaves unwritten shows.
 
-Each path phase (main, redundancy, aft, serve) sets the kernels' launch
-counts to 0 before it runs and reads them after.  Then the kernel table (JSON), the
+Each phase's line carries its wall seconds (``wall_s``), and a line before
+the kernel table sums them.
+Each path phase (main, redundancy, aft, serve, train) sets the kernels'
+launch counts to 0 before it runs and reads them after.  Then the kernel table (JSON), the
 card's name and power limit, and the last line ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without
 that line; so does a machine without a CUDA card, or a directory without
@@ -86,6 +112,8 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
+import os
 import re
 import shutil
 import statistics
@@ -305,6 +333,7 @@ def phase_kernels(results: dict) -> dict:
     torch.cuda.empty_cache()
     parity_kernels(cases, timing, rand_words)
     lm_kernels(cases, timing)
+    train_kernels(cases, timing)
     results["timing"] = timing
     return {"phase": "kernels", "cases": cases, "timing": timing}
 
@@ -791,6 +820,172 @@ def lm_kernels(cases: list, timing: dict) -> None:
             del args
             torch.cuda.empty_cache()
     timing["scan_sweep"] = sweep
+
+
+# ------------------------------------------------ the training path's kernels
+LSE_TOL = (1e-5, 1e-4)           # (rtol, atol): float32 sums, another order
+# gradients against the plain version's autograd in float32, as a share of
+# each gradient's largest magnitude: bf16 inputs and outputs round at 2^-8
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SCAN_GRAD_TOL = 1e-4             # float32 scans, share of the largest |g|
+
+
+def _grad_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float((got.detach().float() - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def train_kernels(cases: list, timing: dict) -> None:
+    """The training path's use of the LM kernels on the card: the
+    attention kernel's log-sum-exp against the plain one on both routes
+    that write it; the attention Function (kernel forward, blocked
+    backward) and the scan Function (chunked-route forward, plain
+    backward) against the plain versions' autograd."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_lse_ref, attention_ref)
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+    from repro_torch.kernels.ssm_scan.kernel import (
+        CHUNK as scan_chunk, s6_scan_cuda, ssd_scan_cuda)
+    from repro_torch.kernels.ssm_scan.ref import chunked_scan_ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 29)
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    out: dict = {"lse": [], "attention_grads": [], "scan_grads": []}
+    # ---- lse: tc_prefill (bf16, > 64 rows), scalar (float32, or <= 64
+    # rows), rows that see no key, kv_len 0, and the zamba2 train shape
+    for case in [
+        # (b, hq, hkv, lq, lk, d, causal, window, q_offset, kv_len)
+        (1, 2, 2, 128, 128, 64, True, None, 0, None),
+        (2, 8, 2, 100, 260, 80, True, None, 160, None),
+        (1, 4, 1, 200, 200, 80, True, 16, 0, None),
+        (2, 2, 2, 140, 140, 64, True, 8, 0, 4),
+        (1, 2, 2, 100, 100, 64, False, None, 0, 0),
+        (1, 2, 1, 40, 40, 64, True, None, 0, None),
+        (2, 32, 32, 4096, 4096, 80, True, None, 0, None),
+    ]:
+        b, hq, hkv, lq, lk, d, causal, window, q_offset, kv_len = case
+        kw = dict(causal=causal, window=window, q_offset=q_offset,
+                  kv_len=kv_len)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn((b, hq, lq, d), dtype)
+            k, v = randn((b, hkv, lk, d), dtype), randn((b, hkv, lk, d), dtype)
+            r0 = dict(flash_attention_cuda.routes)
+            o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            route = _route_of(r0, flash_attention_cuda.routes)
+            want = ("tc_prefill" if dtype == torch.bfloat16
+                    and lq * hq // hkv > 64 else "scalar")
+            require(route == want, f"lse call took {route} on {case}")
+            o_r, lse_r = attention_lse_ref(q, k, v, **kw)
+            err = _err(lse, lse_r)
+            require(torch.allclose(lse, lse_r, rtol=LSE_TOL[0],
+                                   atol=LSE_TOL[1])
+                    and torch.equal(lse == -1e30, lse_r == -1e30),
+                    f"flash_attention lse != plain on {case} {dtype}: {err}")
+            require(torch.allclose(o.float(), o_r.float(), rtol=2e-2,
+                                   atol=2e-2 if dtype == torch.bfloat16
+                                   else 2e-5),
+                    f"flash_attention out (with lse) != plain on {case}")
+            out["lse"].append({"case": list(case), "dtype": str(dtype),
+                               "route": route, "max_abs_err": err,
+                               "empty_rows": int((lse_r == -1e30).sum())})
+            del q, k, v, o, lse, o_r, lse_r
+    torch.cuda.empty_cache()
+    # ---- attention gradients at zamba2's width (32 heads of 80), causal,
+    # L = 2048 (the plain version's (1, 32, L, L) float32 scores fit), and
+    # GQA 4 with a window: the kernel's forward and the blocked backward
+    # against the plain version's autograd in float32 on the same values
+    for b, hq, hkv, l, window in ((1, 32, 32, 2048, None),
+                                  (1, 32, 8, 1024, 256)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (randn((b, h, l, HEAD_DIM), dtype)
+                       for h in (hq, hkv, hkv))
+            dout = randn((b, hq, l, HEAD_DIM), dtype)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            r0 = dict(flash_attention_cuda.routes)
+            o = fa_ops.attention(*leaves, causal=True, window=window)
+            route = _route_of(r0, flash_attention_cuda.routes)
+            o.backward(dout)
+            ref = [t.float().requires_grad_() for t in (q, k, v)]
+            o_r = attention_ref(*ref, causal=True, window=window)
+            o_r.backward(dout.float())
+            errs = {n: _grad_err(a, w) for n, a, w in zip(
+                ("out", "dq", "dk", "dv"), [o] + [t.grad for t in leaves],
+                [o_r] + [t.grad for t in ref])}
+            tol = GRAD_TOL["bfloat16" if dtype == torch.bfloat16
+                           else "float32"]
+            require(max(errs.values()) <= tol,
+                    f"attention gradients != plain at {(b, hq, hkv, l)} "
+                    f"{dtype}: {errs}")
+            out["attention_grads"].append(
+                {"shape": [b, hq, hkv, l, HEAD_DIM], "window": window,
+                 "dtype": str(dtype), "route": route,
+                 "max_err_over_max": errs, "tol": tol})
+            del q, k, v, dout, leaves, o, ref, o_r
+            torch.cuda.empty_cache()
+    # ---- scan gradients at both models' widths, the Function's forward on
+    # the chunked route at L = 1024 and at L = 40 (one ragged chunk, where
+    # serving takes the sequential route), a stride-0 head axis of B/C for
+    # mamba2 (the model's call)
+    for name, mamba2, heads, st in (("ssd_scan", True, (80, 64), 64),
+                                    ("s6_scan", False, (8192,), 16)):
+        kernel = ssd_scan_cuda if mamba2 else s6_scan_cuda
+        for l in (1024, 40):
+            b = 1
+            if mamba2:
+                nh, hd = heads
+                xs, ss, dts, a_s, hs = ((b, l, nh, hd), (b, l, 1, st),
+                                        (b, l, nh), (nh,), (b, nh, hd, st))
+            else:
+                (di,) = heads
+                xs, ss, dts, a_s, hs = ((b, l, di), (b, l, st), (b, l, di),
+                                        (di, st), (b, di, st))
+            base = [randn(xs), randn(ss), randn(ss),
+                    torch.rand(dts, generator=g, device=dev) * 0.05,
+                    -(0.5 + 1.5 * torch.rand(a_s, generator=g, device=dev)),
+                    randn(hs)]
+            dy = randn(xs)
+            dh = randn(hs)
+
+            def run(fn):
+                leaves = [t.clone().requires_grad_() for t in base]
+                bh, ch = leaves[1], leaves[2]
+                if mamba2:
+                    bh, ch = (t.expand(-1, -1, heads[0], -1)
+                              for t in (bh, ch))
+                y, h = fn(leaves[0], bh, ch, *leaves[3:])
+                ((y * dy).sum() + (h * dh).sum()).backward()
+                return leaves
+
+            ref = run(lambda *a: chunked_scan_ref(*a, chunk=scan_chunk))
+            r0 = dict(kernel.routes)
+            got = run(scan_ops.selective_scan)
+            used = {r: n - r0[r] for r, n in kernel.routes.items()}
+            require(used == {"sequential": 0, "chunked": 1},
+                    f"{name} Function forward at L {l} took {used}")
+            errs = {n: _grad_err(a.grad, w.grad) for n, a, w in zip(
+                ("dtx", "B", "C", "dt", "A", "h0"), got, ref)}
+            require(max(errs.values()) <= SCAN_GRAD_TOL,
+                    f"{name} gradients at L {l} != plain: {errs}")
+            out["scan_grads"].append({"scan": name, "route": "chunked",
+                                      "shape": list(xs), "state": st,
+                                      "max_err_over_max": errs,
+                                      "tol": SCAN_GRAD_TOL})
+            del got, ref, base
+        torch.cuda.empty_cache()
+    timing["flash_attention"]["lse_max_abs_err"] = max(
+        c["max_abs_err"] for c in out["lse"])
+    timing["train_backward"] = out
+    cases.append({"case": "training path", "max_abs_err": {
+        "flash_attention_lse": timing["flash_attention"]["lse_max_abs_err"]}})
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1694,6 +1889,437 @@ def phase_serve(results: dict, scratch: Path) -> dict:
             "attention_routes": routes, "scan_routes": _scan_routes()}
 
 
+# ---------------------------------------------------------------- train
+TRAIN_TINY = False               # full-size configurations (CPU rehearsal: True)
+TRAIN_BATCH = 2
+ZAMBA_SEQ, FALCON_SEQ = 4096, 2048
+TRAIN_STEPS, TRAIN_CP_FREQ, TRAIN_FAIL_AT = 6, 3, 5
+FALCON_STEPS, FALCON_LR = 3, 1e-4
+TRAIN_TIMEOUT_S = 700            # the child's limit
+# kernel families of a traced train step: the plain backwards and the
+# optimizer by their trace spans (``craft::...`` record_function ranges),
+# the rest by kernel name as in PREFILL_FAMILIES
+TRAIN_SPANS = {"craft::attention_bwd": "attention_backward",
+               "craft::scan_bwd": "scan_backward",
+               "craft::adamw": "optimizer"}
+HAND_KERNELS = ("flash_", "ssd_", "s6_", "carry_kernel")
+MATMUL_KERNELS = ("nvjet", "gemm", "cutlass", "sm90_")
+
+
+class _Interrupted(Exception):
+    """Raised from ``on_step`` to cut a training run, as a kill would."""
+
+
+def _train_env(root: Path, device_snapshot: bool = True):
+    from repro_torch.core import CraftEnv
+
+    return CraftEnv.capture({"CRAFT_CP_PATH": str(root),
+                             "CRAFT_TIER_CHAIN": "pfs",
+                             "CRAFT_DEVICE_SNAPSHOT": str(int(device_snapshot)),
+                             "CRAFT_KEEP_VERSIONS": "1",
+                             "CRAFT_METRICS": "1"})
+
+
+def _dir_bytes(root: Path) -> int:
+    return sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+
+
+def _trees_equal(a, b) -> bool:
+    """The same key paths, each leaf torch.equal (dict order aside: a
+    restore rebuilds the dicts in sorted order)."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    ma, mb = ({pytree.keystr(k): v for k, v in
+               pytree.tree_flatten_with_path(t)[0]} for t in (a, b))
+    return set(ma) == set(mb) and all(torch.equal(ma[k], mb[k]) for k in ma)
+
+
+def train_trace(cfg, state, batch, ocfg) -> dict:
+    """One train step on ``state`` under torch.profiler: wall and
+    device-busy seconds and device seconds by family (the hand forward
+    kernels, the attention and scan backwards, cuBLAS matmuls, the
+    optimizer, elementwise and copies), kernels counted once."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.steps import TrainStepConfig, make_train_step
+
+    step = make_train_step(cfg, ocfg, TrainStepConfig(loss_chunk=32))
+    torch_sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state["params"], state["opt"], batch)
+        torch_sync()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    # the craft:: spans also appear on the device's timeline (user
+    # annotations spanning their kernels): kernels only here
+    ops = [e for e in events if e.device_type == DeviceType.CUDA
+           and not e.name.startswith("craft::")]
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in ops):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    total = sum(e.time_range.elapsed_us() for e in ops) * 1e-6
+
+    def by_name(name: str) -> str:
+        if any(k in name for k in HAND_KERNELS):
+            return "hand_forward_kernels"
+        if any(k in name for k in MATMUL_KERNELS):
+            return "matmul"
+        return "elementwise_and_copies"
+
+    family = dict.fromkeys(("hand_forward_kernels", "attention_backward",
+                            "scan_backward", "optimizer", "matmul",
+                            "elementwise_and_copies"), 0.0)
+    for e in ops:
+        family[by_name(e.name)] += e.time_range.elapsed_us() * 1e-6
+    # a span's kernels (launched by the ops under it) move from their name
+    # family to the span's
+    def walk(ev, fam):
+        for kern in ev.kernels:
+            sec = kern.duration * 1e-6
+            family[fam] += sec
+            family[by_name(kern.name)] -= sec
+        for ch in ev.cpu_children:
+            walk(ch, fam)
+
+    def under(ev) -> float:
+        return (sum(k.duration for k in ev.kernels) * 1e-6
+                + sum(under(ch) for ch in ev.cpu_children))
+
+    spans, forward = {}, 0.0
+    for e in events:
+        if e.device_type != DeviceType.CPU:
+            continue
+        fam = TRAIN_SPANS.get(e.name)
+        if fam is not None:
+            spans[fam] = spans.get(fam, 0) + 1
+            walk(e, fam)
+        elif e.name == "craft::forward":
+            forward += under(e)
+    # the backward (autograd's thread, remat recompute included) is what
+    # the forward and the optimizer leave of the step's kernel time
+    split = {"forward": forward, "optimizer": family["optimizer"]}
+    split["backward"] = total - forward - family["optimizer"]
+    return {"wall_s": wall, "device_busy_s": busy * 1e-6,
+            "device_kernel_s": total, "device_ops": len(ops),
+            "device_s_by_family": family, "device_s_by_pass": split,
+            "backward_share": split["backward"] / total if total else None,
+            "span_counts": spans}
+
+
+def _host_stats() -> dict:
+    """The pinned host caching allocator's current and peak bytes, where
+    this PyTorch reports them."""
+    import torch
+
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if DEVICE != "cuda" or stats is None:
+        return {}
+    return {k: v for k, v in stats().items()
+            if k.startswith(("allocated_bytes", "reserved_bytes"))}
+
+
+def _free_host_cache() -> None:
+    """Collect cycles and hand the card's and the pinned host caches back
+    (a closed Checkpoint's mirrors are the state's size)."""
+    import torch
+
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        for name in ("_host_emptyCache", "_accelerator_emptyHostCache"):
+            release = getattr(torch._C, name, None)
+            if release is not None:
+                release()
+                break
+
+
+def rss_now_gib() -> float:
+    """Resident set of this process now (VmRSS), GiB."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+class RssPeak:
+    """This process's own peak resident set, sampled every 0.2 s on a
+    thread: ``ru_maxrss`` of a child started by fork and exec carries its
+    parent's peak, and the card's machine reports no VmHWM."""
+
+    def __init__(self):
+        import threading
+
+        self.peak = rss_now_gib()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.2):
+            self.peak = max(self.peak, rss_now_gib())
+
+    def stop(self) -> float:
+        self._stop.set()
+        self._thread.join()
+        return max(self.peak, rss_now_gib())
+
+
+def train_zamba2(scratch: Path) -> dict:
+    """zamba2-2.7b at full width through ``launch.train.run``: a run
+    checkpointing every TRAIN_CP_FREQ steps cut at step TRAIN_FAIL_AT, the
+    resumed run, which must restart at TRAIN_CP_FREQ, and an uninterrupted
+    run, which the resumed one must equal bit for bit.  The uninterrupted
+    run comes last and takes the host snapshot path
+    (CRAFT_DEVICE_SNAPSHOT=0, and it writes no version): the resumed run's
+    final state stays on the card beside it, and the device snapshot's
+    word buffer (the state's size) would not fit there too."""
+    import dataclasses
+
+    import torch
+    import torch.utils._pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import adamw_update
+
+    arch = "zamba2-2.7b"
+    cfg = get_config(arch, tiny=TRAIN_TINY)
+    on_card = DEVICE == "cuda"
+    tc = train.TrainConfig(arch=arch, tiny=TRAIN_TINY, steps=TRAIN_STEPS,
+                           global_batch=TRAIN_BATCH, seq_len=ZAMBA_SEQ,
+                           cp_freq=TRAIN_STEPS + 1, seed=SEED, device=DEVICE)
+    ck = dataclasses.replace(tc, cp_freq=TRAIN_CP_FREQ)
+    _reset_counts()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+
+    def interrupt(step, metrics):
+        if step == TRAIN_FAIL_AT:
+            raise _Interrupted(f"interrupted after step {step}")
+
+    w0 = _tier_writes()
+    t0 = time.perf_counter()
+    try:
+        train.run(ck, env=_train_env(scratch / "ck"), on_step=interrupt)
+    except _Interrupted:
+        pass
+    else:
+        raise Failure(f"{arch}: the interrupted run was not interrupted")
+    cut_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    _free_host_cache()
+    w1 = _tier_writes()
+    version_bytes = _dir_bytes(scratch / "ck")
+    # the resumed run writes no version of its own (the cut run measured a
+    # write): cp_freq past the last step
+    resumed = train.run(tc, env=_train_env(scratch / "ck"))
+    w2 = _tier_writes()
+    require(w2[0] == w1[0], f"{arch}: the resumed run wrote a version")
+    rss_ck = rss_now_gib()
+    _free_host_cache()
+    shutil.rmtree(scratch / "ck", ignore_errors=True)
+    rss_freed = rss_now_gib()
+    clean = train.run(tc, env=_train_env(scratch / "clean",
+                                         device_snapshot=False))
+    launches, routes, scans = _counts(), _attn_routes(), _scan_routes()
+    steps_run = TRAIN_STEPS + TRAIN_FAIL_AT + TRAIN_STEPS - TRAIN_CP_FREQ
+    require(resumed["start_step"] == TRAIN_CP_FREQ
+            and resumed["final_step"] == TRAIN_STEPS,
+            f"{arch}: resumed at {resumed['start_step']}, ended at "
+            f"{resumed['final_step']}")
+    require(resumed["losses"] == clean["losses"][TRAIN_CP_FREQ:],
+            f"{arch}: resumed losses {resumed['losses']} != "
+            f"{clean['losses'][TRAIN_CP_FREQ:]}")
+    finite = all(math.isfinite(x) for r in (clean, resumed)
+                 for x in r["losses"] + r["grad_norms"])
+    require(finite, f"{arch}: a loss or grad norm was not finite")
+    require(_trees_equal(resumed["state"], clean["state"]),
+            f"{arch}: the resumed run's parameters or optimizer state "
+            "differ from the uninterrupted run's")
+    n_shared = cfg.n_layers // cfg.shared_attn_every
+    if on_card:
+        # remat: every block's forward runs twice a step
+        require(launches["flash_attention"] == 2 * n_shared * steps_run
+                and routes["tc_prefill"] == launches["flash_attention"],
+                f"{arch}: attention launches {launches} routes {routes}")
+        require(launches["ssd_scan"] == 2 * cfg.n_layers * steps_run
+                and scans["ssd_scan"]["chunked"] == launches["ssd_scan"],
+                f"{arch}: scan launches {launches} routes {scans}")
+        require(launches["checksum"] > 0 and launches["snapshot"] > 0,
+                f"{arch}: checksum/snapshot never launched: {launches}")
+    params, opt = resumed["state"]["params"], resumed["state"]["opt"]
+    out = {"arch": arch, "batch": TRAIN_BATCH, "seq_len": ZAMBA_SEQ,
+           "param_bytes": _tree_bytes(params),
+           "moment_bytes": _tree_bytes({"m": opt["m"], "v": opt["v"]}),
+           "losses": clean["losses"], "grad_norms": clean["grad_norms"],
+           "resumed_losses": resumed["losses"],
+           "step_s": clean["step_s"],
+           "median_step_s": statistics.median(clean["step_s"]),
+           "resumed_step_s": resumed["step_s"],
+           "peak_device_bytes": peak,
+           "peak_device_bytes_all_runs": (torch.cuda.max_memory_allocated()
+                                          if on_card else None),
+           "rss_gib_after_resumed_run": rss_ck,
+           "rss_gib_after_host_cache_release": rss_freed,
+           "rss_gib_after_uninterrupted_run": rss_now_gib(),
+           "host_memory_stats": _host_stats(),
+           "cut_run_s": cut_s,
+           "cut_run_tier_writes": [w1[0] - w0[0], w1[1] - w0[1]],
+           "version_bytes_on_disk": version_bytes,
+           "restore_s": resumed["restore_s"],
+           "restore_read_bytes": resumed["stats"].get("restore_read_bytes"),
+           "resumed_tier_writes": [w2[0] - w1[0], w2[1] - w1[1]],
+           "start_step": resumed["start_step"],
+           "final_step": resumed["final_step"],
+           "losses_equal": True, "state_equal": True, "finite": finite,
+           "launches": launches, "attention_routes": routes,
+           "scan_routes": scans}
+    del clean
+    gc.collect()
+    batch = SyntheticTokens(vocab=cfg.vocab, seq_len=ZAMBA_SEQ,
+                            global_batch=TRAIN_BATCH, seed=SEED).batch(0)
+    ocfg = train.optim_config(tc)
+    if on_card:
+        out["trace"] = train_trace(cfg, resumed["state"], batch, ocfg)
+        # the optimizer alone on the live state: seconds and the bytes it
+        # allocates above what is resident
+        grads = pytree.tree_map(lambda p: torch.randn(
+            p.shape, device=p.device, dtype=torch.float32).to(p.dtype),
+            params)
+        torch_sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        adamw_update(grads, opt, params, ocfg)
+        torch_sync()
+        out["update_s"] = time.perf_counter() - t0
+        out["update_peak_extra_bytes"] = (torch.cuda.max_memory_allocated()
+                                          - base)
+        del grads
+    del resumed, params, opt
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_falcon() -> dict:
+    """falcon-mamba-7b at full width, 8-bit moments: FALCON_STEPS steps on
+    one batch must lower the loss; every s6_scan call chunked."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import OptimConfig
+    from repro_torch.train.steps import TrainStepConfig, make_train_step
+
+    arch = "falcon-mamba-7b"
+    cfg = get_config(arch, tiny=TRAIN_TINY)
+    on_card = DEVICE == "cuda"
+    ocfg = OptimConfig(lr=FALCON_LR, warmup_steps=1, total_steps=10,
+                       state_bits=8, master_fp32=False)
+    _reset_counts()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt = train.init_state(cfg, ocfg, SEED, DEVICE)
+    torch_sync()
+    init_s = time.perf_counter() - t0
+    step = make_train_step(cfg, ocfg, TrainStepConfig(loss_chunk=32))
+    batch = SyntheticTokens(vocab=cfg.vocab, seq_len=FALCON_SEQ,
+                            global_batch=TRAIN_BATCH, seed=SEED).batch(0)
+    losses, norms, step_s = [], [], []
+    for _ in range(FALCON_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        step_s.append(time.perf_counter() - t0)
+    launches, scans = _counts(), _scan_routes()
+    require(all(math.isfinite(x) for x in losses + norms),
+            f"{arch}: a loss or grad norm was not finite: {losses} {norms}")
+    require(losses[-1] < losses[0], f"{arch}: the loss did not fall on one "
+            f"batch: {losses}")
+    if on_card:
+        require(launches["s6_scan"] == 2 * cfg.n_layers * FALCON_STEPS
+                and scans["s6_scan"]["chunked"] == launches["s6_scan"],
+                f"{arch}: scan launches {launches} routes {scans}")
+    trace = (train_trace(cfg, {"params": params, "opt": opt}, batch, ocfg)
+             if on_card else None)
+    out = {"arch": arch, "batch": TRAIN_BATCH, "seq_len": FALCON_SEQ,
+           "state_bits": 8, "lr": FALCON_LR, "init_s": init_s,
+           "param_bytes": _tree_bytes(params),
+           "moment_bytes": _tree_bytes({"m": opt["m"], "v": opt["v"]}),
+           "losses": losses, "grad_norms": norms, "step_s": step_s,
+           "median_step_s": statistics.median(step_s),
+           "peak_device_bytes": (torch.cuda.max_memory_allocated()
+                                 if on_card else None),
+           "launches": launches, "scan_routes": scans, "trace": trace}
+    del params, opt
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_child(scratch: Path) -> dict:
+    """The train phase's body, in its own process (see phase_train)."""
+    import torch
+
+    from repro_torch.core import metrics
+
+    if DEVICE == "cuda":
+        require(os.environ.get("CUBLAS_WORKSPACE_CONFIG") == ":4096:8",
+                "the train child needs CUBLAS_WORKSPACE_CONFIG=:4096:8")
+        # deterministic mode also fills each new allocation with NaN, so
+        # an output that a kernel leaves unwritten shows in the losses
+        torch.use_deterministic_algorithms(True)
+    metrics.install()
+    rss = RssPeak()
+    zamba = train_zamba2(scratch)
+    shutil.rmtree(scratch, ignore_errors=True)
+    falcon = train_falcon()
+    launches = {k: zamba["launches"][k] + falcon["launches"][k]
+                for k in zamba["launches"]}
+    return {"phase": "train", "zamba2": zamba, "falcon_mamba": falcon,
+            "launches": launches,
+            "child_peak_rss_gib": rss.stop(),
+            "host_cache_release": [n for n in (
+                "_host_emptyCache", "_accelerator_emptyHostCache")
+                if hasattr(torch._C, n)]}
+
+
+def phase_train(results: dict) -> dict:
+    """Run the train phase in a child process (``--phases train-child``),
+    so its ~28 GB of state and its host buffers do not stack on the
+    earlier phases' resident memory; its non-zero exit fails the smoke."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    _free_host_cache()
+    parent_rss = rss_now_gib()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--phases",
+         "train-child"], env=env, capture_output=True, text=True,
+        timeout=TRAIN_TIMEOUT_S)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise Failure(f"train child exited {proc.returncode}:\n"
+                      f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    out = json.loads(lines[-1])
+    out["child_s"] = time.perf_counter() - t0
+    out["parent_rss_gib_at_start"] = parent_rss
+    results["train_launches"] = out["launches"]
+    return out
+
+
 # ---------------------------------------------------------------- report
 KERNELS = [
     {"name": "checksum", "route": "cuda",
@@ -1725,7 +2351,7 @@ PATH_OF = {"checksum": "launches", "snapshot": "launches",
            "flash_attention": "serve_launches",
            "ssd_scan": "serve_launches", "s6_scan": "serve_launches"}
 ALL_PHASES = ["build", "kernels", "main", "default", "redundancy", "aft",
-              "serve"]
+              "serve", "train"]
 
 
 def main(argv=None) -> int:
@@ -1748,25 +2374,38 @@ def main(argv=None) -> int:
     (ROOT / "build").mkdir(exist_ok=True)
     scratch = Path(tempfile.mkdtemp(prefix="smoke-", dir=ROOT / "build"))
     results: dict = {}
+    wall: dict = {}
+
+    def run(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        wall[name] = out["wall_s"] = time.perf_counter() - t0
+        emit(out)
+
     try:
         if "build" in phases:
-            emit(phase_build())
+            run("build", phase_build)
         if "kernels" in phases:
-            emit(phase_kernels(results))
+            run("kernels", phase_kernels, results)
         if "main" in phases:
-            emit(phase_main(results, scratch / "main"))
+            run("main", phase_main, results, scratch / "main")
             shutil.rmtree(scratch / "main", ignore_errors=True)
         if "default" in phases:
-            emit(phase_default(scratch / "default"))
+            run("default", phase_default, scratch / "default")
             shutil.rmtree(scratch / "default", ignore_errors=True)
         if "redundancy" in phases:
-            emit(phase_redundancy(results, scratch / "redundancy"))
+            run("redundancy", phase_redundancy, results,
+                scratch / "redundancy")
             shutil.rmtree(scratch / "redundancy", ignore_errors=True)
         if "aft" in phases:
-            emit(phase_aft(results, scratch / "aft"))
+            run("aft", phase_aft, results, scratch / "aft")
             shutil.rmtree(scratch / "aft", ignore_errors=True)
         if "serve" in phases:
-            emit(phase_serve(results, scratch / "serve"))
+            run("serve", phase_serve, results, scratch / "serve")
+        if "train" in phases:
+            run("train", phase_train, results)
+        if "train-child" in phases:
+            run("train-child", phase_train_child, scratch / "train")
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     if phases != ALL_PHASES:
@@ -1782,7 +2421,10 @@ def main(argv=None) -> int:
                       "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                       "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                       "bound_by": t["bound_by"],
-                      "library_ms": t.get("library_ms")})
+                      "library_ms": t.get("library_ms"),
+                      "train_launches": results["train_launches"][
+                          k["name"]]})
+    emit({"phase_wall_s": wall, "total_wall_s": sum(wall.values())})
     emit({"kernels": table})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

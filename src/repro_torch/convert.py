@@ -3,7 +3,10 @@
 :func:`state_from_numpy` is how the same state reaches both packages (the
 reference takes the numpy arrays, the port their tensors);
 :func:`params_from_numpy` carries a model's parameter tree and holds it to
-the port's own tree for the configuration.  Dtypes torch
+the port's own tree for the configuration; :func:`opt_state_from_numpy`
+does the same for an AdamW state (the reference's ``adamw_init`` /
+``adamw_update`` layout, 32-bit or 8-bit moments, with or without the
+master copy).  Dtypes torch
 has but numpy names only through ``ml_dtypes`` (``bfloat16``, the
 ``float8_*`` family) are carried through a same-width unsigned view of the
 bytes, so no value is converted.
@@ -43,22 +46,50 @@ def params_from_numpy(tree, cfg, device="cuda"):
     """
     from repro_torch.models import model as M
 
-    want = pytree.tree_flatten_with_path(
-        M.init_params(None, cfg, device="meta"))[0]
-    got = pytree.tree_flatten_with_path(tree)[0]
-    want_map = {pytree.keystr(k): v for k, v in want}
-    got_map = {pytree.keystr(k): v for k, v in got}
+    out = state_from_numpy(tree, device)
+    _match(out, M.init_params(None, cfg, device="meta"),
+           f"{cfg.arch_id} parameter")
+    return out
+
+
+def opt_state_from_numpy(tree, cfg, device="cuda"):
+    """An AdamW state of the reference (``m``, ``v``, ``count`` and
+    optionally ``master``; 8-bit moments as ``{"q": int8, "scale":
+    float32}``), numpy leaves, as the port's state on ``device`` (``count``
+    on the host, as ``optim.adamw`` keeps it).  Held to the port's
+    ``adamw_init`` of ``cfg``'s parameters in the same layout, or
+    ValueError."""
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import OptimConfig, adamw_init
+
+    def eight(t) -> bool:
+        return isinstance(t, dict) and (set(t) == {"q", "scale"} or any(
+            eight(v) for v in t.values()))
+
+    ocfg = OptimConfig(state_bits=8 if eight(tree["m"]) else 32,
+                       master_fp32="master" in tree)
+    want = adamw_init(M.init_params(None, cfg, device="meta"), ocfg)
+    out = {k: state_from_numpy(v, device) for k, v in tree.items()
+           if k != "count"}
+    out["count"] = tensor_from_numpy(np.asarray(tree["count"]), "cpu")
+    _match(out, want, f"{cfg.arch_id} optimizer state")
+    return out
+
+
+def _match(got, want, what: str) -> None:
+    """``got`` has ``want``'s key paths, shapes and dtypes, or ValueError."""
+    want_map = {pytree.keystr(k): v
+                for k, v in pytree.tree_flatten_with_path(want)[0]}
+    got_map = {pytree.keystr(k): v
+               for k, v in pytree.tree_flatten_with_path(got)[0]}
     if set(want_map) != set(got_map):
         raise ValueError(
-            f"parameter tree of {cfg.arch_id} does not match: missing "
+            f"{what} tree does not match: missing "
             f"{sorted(set(want_map) - set(got_map))}, unexpected "
             f"{sorted(set(got_map) - set(want_map))}")
-    out = state_from_numpy(tree, device)
-    for key, t in pytree.tree_flatten_with_path(out)[0]:
-        ref = want_map[pytree.keystr(key)]
+    for key, t in got_map.items():
+        ref = want_map[key]
         if tuple(t.shape) != tuple(ref.shape) or t.dtype != ref.dtype:
             raise ValueError(
-                f"{cfg.arch_id} parameter {pytree.keystr(key)}: got "
-                f"{tuple(t.shape)} {t.dtype}, expected {tuple(ref.shape)} "
-                f"{ref.dtype}")
-    return out
+                f"{what} {key}: got {tuple(t.shape)} {t.dtype}, expected "
+                f"{tuple(ref.shape)} {ref.dtype}")

@@ -170,6 +170,12 @@ class Checkpoint:
         # device work entirely when no write can consult it.
         kw.setdefault("device_hist", self.env.compress == "zstd"
                       and self.env.zstd_gate_bits > 0)
+        # A second host mirror only serves a writer thread that may still
+        # read the previous version's while the next snapshot patches the
+        # other; synchronous writes finish first, so one mirror (the size
+        # of the state in pinned host memory) is enough.
+        kw.setdefault("double_buffer", self.env.write_async
+                      or self.env.write_async_zero_copy)
         self._map[key] = checkpointables.wrap(obj, **kw)
 
     # --------------------------------------------------------------- commit

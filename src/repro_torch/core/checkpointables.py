@@ -326,7 +326,7 @@ class TorchTensorCp(CpBase):
 
     def __init__(self, box: Box, *, device_snapshot: bool = False,
                  chunk_bytes: Optional[int] = None,
-                 device_hist: bool = True):
+                 device_hist: bool = True, double_buffer: bool = True):
         if not isinstance(box, Box):
             raise TypeError("TorchTensorCp expects a Box holding a tensor")
         self.box = box
@@ -334,7 +334,8 @@ class TorchTensorCp(CpBase):
         self._meta: dict = {}
         self._snap = (
             DeviceSnapshotter(chunk_bytes or IOContext.chunk_bytes,
-                              with_hist=device_hist)
+                              with_hist=device_hist,
+                              double_buffer=double_buffer)
             if device_snapshot else None
         )
         self.update()
@@ -441,12 +442,13 @@ class PytreeCp(CpBase):
 
     def __init__(self, box: Box, *, device_snapshot: bool = False,
                  chunk_bytes: Optional[int] = None,
-                 device_hist: bool = True):
+                 device_hist: bool = True, double_buffer: bool = True):
         self.box = box
         self._buf: list = []
         self._snap = (
             DeviceSnapshotter(chunk_bytes or IOContext.chunk_bytes,
-                              with_hist=device_hist)
+                              with_hist=device_hist,
+                              double_buffer=double_buffer)
             if device_snapshot else None
         )
         self.update()
@@ -734,11 +736,11 @@ def wrap(obj: Any, **kw) -> CpBase:
             return factory(obj)
     if isinstance(obj, Box):
         v = obj.value
-        snap_kw = {
-            "device_snapshot": kw.get("device_snapshot", False),
-            "chunk_bytes": kw.get("chunk_bytes"),
-            "device_hist": kw.get("device_hist", True),
-        }
+        # the snapshot options as the caller gave them (Checkpoint.add
+        # decides each); the checkpointables hold the defaults
+        snap_kw = {k: kw[k] for k in ("device_snapshot", "chunk_bytes",
+                                      "device_hist", "double_buffer")
+                   if k in kw}
         if isinstance(v, torch.Tensor):
             return TorchTensorCp(obj, **snap_kw)
         if isinstance(v, _POD_TYPES):

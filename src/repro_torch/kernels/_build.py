@@ -35,9 +35,9 @@ SIGNATURES = {
     "rs_erasure": {"craft_gf_matmul": [_VOIDP, _VOIDP, _VOIDP, _INT, _INT,
                                        _LL, _VOIDP]},
     "flash_attention": {
-        "craft_flash_attention": [_VOIDP] * 4 + [_INT] * 6 + [_LL] * 9
+        "craft_flash_attention": [_VOIDP] * 5 + [_INT] * 6 + [_LL] * 9
         + [_FLOAT] + [_INT] * 5 + [_VOIDP],
-        "craft_flash_prefill_tc": [_VOIDP] * 4 + [_INT] * 6 + [_LL] * 9
+        "craft_flash_prefill_tc": [_VOIDP] * 5 + [_INT] * 6 + [_LL] * 9
         + [_FLOAT] + [_INT] * 4 + [_VOIDP],
         "craft_flash_decode": [_VOIDP] * 6 + [_INT] * 5 + [_LL] * 9
         + [_FLOAT] + [_INT] * 9 + [_VOIDP],

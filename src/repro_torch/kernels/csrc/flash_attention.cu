@@ -5,7 +5,9 @@
 // accumulation.  GQA: query head h reads kv head h / (Hq / Hkv).  Masks:
 // causal (kpos <= qpos), sliding window (kpos > qpos - window), kv_len
 // (kpos < kv_len), with qpos = q_offset + query row.  A row with no
-// unmasked key returns 0.
+// unmasked key returns 0.  Asked for it, the scalar and tc_prefill routes
+// also write each row's log-sum-exp of its scaled scores (-1e30 for a row
+// with no unmasked key): the residual of the training backward.
 //
 // Bound on the H100.  Prefill (L = 8192, D = 80) is bound by operations:
 // 4 D flops per unmasked (query, key) pair against 2 bytes per element
@@ -70,12 +72,17 @@ namespace {
 
 constexpr int kDMax = 128;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+// lse of a row that sees no key: the reference's blocked forward starts its
+// running max at -1e30 and divides by 1 where the sum is 0
+constexpr float kEmptyLse = -1e30f;
 
 struct Args {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;                  // (B, Hq, Lq) or null: m + log(l) per row
   int hq, hkv, lq, lk, d;
   long long qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl;
   float scale;
@@ -338,13 +345,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Args a) {
   }
 
   if (!active) return;
-  T* op = static_cast<T*>(a.o) +
-          ((static_cast<long long>(b) * a.hq + h) * a.lq + q0) * D;
+  const long long row0 = (static_cast<long long>(b) * a.hq + h) * a.lq + q0;
+  T* op = static_cast<T*>(a.o) + row0 * D;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int r = tr * kRows + i;
     if (r >= nq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    if (a.lse != nullptr && tc == 0)
+      a.lse[row0 + r] = l[i] > 0.f ? m[i] + logf(l[i]) : kEmptyLse;
 #pragma unroll
     for (int j = 0; j < kDims; ++j) {
       const int dd = tc + 16 * j;
@@ -585,9 +594,13 @@ __global__ void __launch_bounds__(kThreads) flash_tc(Args a) {
   l1 = quad_sum(l1);
   const float i0 = l0 > 0.f ? 1.f / l0 : 0.f;   // a row with no key: 0
   const float i1 = l1 > 0.f ? 1.f / l1 : 0.f;
-  bf16* op = static_cast<bf16*>(a.o) +
-             ((static_cast<long long>(b) * a.hq + h) * a.lq + q0) * D;
+  const long long row0 = (static_cast<long long>(b) * a.hq + h) * a.lq + q0;
+  bf16* op = static_cast<bf16*>(a.o) + row0 * D;
   const int r0 = wr0 + g, r1 = r0 + 8;
+  if (a.lse != nullptr && tig == 0) {   // m is base 2: lse = m ln 2 + ln l
+    if (r0 < nq) a.lse[row0 + r0] = l0 > 0.f ? m0 * kLn2 + logf(l0) : kEmptyLse;
+    if (r1 < nq) a.lse[row0 + r1] = l1 > 0.f ? m1 * kLn2 + logf(l1) : kEmptyLse;
+  }
 #pragma unroll
   for (int j = 0; j < S::kDTiles; ++j) {
     const int col = j * 8 + tig * 2;
@@ -975,12 +988,15 @@ int launch(const DecArgs& a, int b, void* out, cudaStream_t s) {
 
 // q (B, Hq, Lq, D), k/v (B, Hkv, Lk, D) with the given element strides of
 // their batch, head and row axes (the last axis contiguous); out
-// (B, Hq, Lq, D) contiguous.  window <= 0 means no window.  Each entry
-// point returns the cudaError_t of its launches (0 on success).
+// (B, Hq, Lq, D) contiguous.  window <= 0 means no window.  lse (B, Hq, Lq)
+// float32 contiguous, or null (scalar and tc_prefill routes): each row's
+// log-sum-exp of its scaled scores, -1e30 for a row that sees no key.
+// Each entry point returns the cudaError_t of its launches (0 on success).
 
 // scalar route: dtype 0 = float32, 1 = bfloat16 (all four tensors)
 extern "C" int craft_flash_attention(
-    const void* q, const void* k, const void* v, void* out, int b, int hq,
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    int b, int hq,
     int hkv, int lq, int lk, int d, long long qsb, long long qsh,
     long long qsl, long long ksb, long long ksh, long long ksl,
     long long vsb, long long vsh, long long vsl, float scale, int causal,
@@ -989,8 +1005,9 @@ extern "C" int craft_flash_attention(
       lq < 0 || lk < 0 || b > 65535 || hq > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (lq == 0) return 0;
-  Args a{q, k, v, out, hq, hkv, lq, lk, d, qsb, qsh, qsl, ksb, ksh, ksl,
-         vsb, vsh, vsl, scale, causal, window, q_offset, kv_len};
+  Args a{q, k, v, out, static_cast<float*>(lse), hq, hkv, lq, lk, d,
+         qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, scale, causal, window,
+         q_offset, kv_len};
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return scalar::launch<float>(a, b, s);
   if (dtype == 1) return scalar::launch<__nv_bfloat16>(a, b, s);
@@ -1000,7 +1017,8 @@ extern "C" int craft_flash_attention(
 // tc_prefill route: bfloat16, D a multiple of 16 up to 128; q, k, v bases
 // and strides 16-byte aligned
 extern "C" int craft_flash_prefill_tc(
-    const void* q, const void* k, const void* v, void* out, int b, int hq,
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    int b, int hq,
     int hkv, int lq, int lk, int d, long long qsb, long long qsh,
     long long qsl, long long ksb, long long ksh, long long ksl,
     long long vsb, long long vsh, long long vsl, float scale, int causal,
@@ -1010,8 +1028,9 @@ extern "C" int craft_flash_prefill_tc(
       (lq + tc::kBQ - 1) / tc::kBQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (lq == 0) return 0;
-  Args a{q, k, v, out, hq, hkv, lq, lk, d, qsb, qsh, qsl, ksb, ksh, ksl,
-         vsb, vsh, vsl, scale, causal, window, q_offset, kv_len};
+  Args a{q, k, v, out, static_cast<float*>(lse), hq, hkv, lq, lk, d,
+         qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, scale, causal, window,
+         q_offset, kv_len};
   auto s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 16: return tc::launch<16>(a, b, s);

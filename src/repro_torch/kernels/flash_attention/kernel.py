@@ -18,6 +18,12 @@ alone (a route that fails to build or launch raises):
 - ``scalar``: float32 prefill and any D not a multiple of 16 — scalar
   fp32 FMAs.
 
+With ``return_lse=True`` the wrapper also returns each row's log-sum-exp
+of its scaled scores (float32 (B, Hq, Lq), -1e30 for a row that sees no
+key, as the reference's blocked forward): the residual of the training
+backward.  ``tc_prefill`` and ``scalar`` write it; rows that would take
+``split_decode`` take ``scalar`` then, by the same rule every time.
+
 ``flash_attention_cuda.launches`` counts the wrapper calls that launched
 (one per call, whatever the route), ``flash_attention_cuda.routes`` the
 calls of each route.
@@ -41,13 +47,15 @@ BLOCKS_PER_SM = 2        # split_decode blocks the split count aims for
 H100_SMS = 132
 
 
-def choose_route(dtype: torch.dtype, lq: int, group: int, d: int) -> str:
+def choose_route(dtype: torch.dtype, lq: int, group: int, d: int,
+                 lse: bool = False) -> str:
     """The kernel route for q of ``dtype`` with ``lq`` rows, ``group`` q
-    heads per kv head and head dim ``d``."""
+    heads per kv head and head dim ``d``; ``lse``: the call must also
+    return the log-sum-exp (``split_decode`` writes none)."""
     if d % 16 or d > D_MAX:
         return "scalar"
     if lq * group <= DECODE_ROWS:
-        return "split_decode"
+        return "scalar" if lse else "split_decode"
     return "tc_prefill" if dtype == torch.bfloat16 else "scalar"
 
 
@@ -98,10 +106,11 @@ def flash_attention_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: Optional[int] = None,
     sm_scale: Optional[float] = None, q_offset: int = 0,
-    kv_len: Optional[int] = None,
-) -> torch.Tensor:
+    kv_len: Optional[int] = None, return_lse: bool = False,
+):
     """Attention of CUDA tensors q (B, Hq, Lq, D), k/v (B, Hkv, Lk, D), all
-    float32 or all bfloat16, D <= 128; returns (B, Hq, Lq, D) in q's dtype.
+    float32 or all bfloat16, D <= 128; returns (B, Hq, Lq, D) in q's dtype,
+    and with ``return_lse`` also the (B, Hq, Lq) float32 log-sum-exp.
     Any strides of the batch, head and row axes are taken (copied where
     the route's 16-byte copies need alignment).  Raises for tensors that
     are not on a CUDA device."""
@@ -136,17 +145,22 @@ def flash_attention_cuda(
                          f">= 0 and window {window} None or > 0")
     window = 0 if window is None else int(window)      # 0: no window
     out = torch.empty((b, hq, lq, d), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    route = choose_route(q.dtype, lq, hq // hkv, d)
-    _launch(route, q, k, v, out, causal=bool(causal), window=window,
-            sm_scale=float(sm_scale), q_offset=int(q_offset), kv_len=kv_len)
-    return out
+    lse = (torch.empty((b, hq, lq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if out.numel():
+        route = choose_route(q.dtype, lq, hq // hkv, d, lse=return_lse)
+        _launch(route, q, k, v, out, causal=bool(causal), window=window,
+                sm_scale=float(sm_scale), q_offset=int(q_offset),
+                kv_len=kv_len, lse=lse)
+    return (out, lse) if return_lse else out
 
 
 def _launch(route: str, q, k, v, out, *, causal: bool, window: int,
-            sm_scale: float, q_offset: int, kv_len: int) -> None:
-    """Launch ``route``'s kernel(s) on checked arguments and count it."""
+            sm_scale: float, q_offset: int, kv_len: int,
+            lse: Optional[torch.Tensor] = None) -> None:
+    """Launch ``route``'s kernel(s) on checked arguments and count it;
+    ``lse`` (float32 (B, Hq, Lq)) is written by the scalar and tc_prefill
+    routes."""
     b, hq, lq, d = q.shape
     _, hkv, lk, _ = k.shape
     lib = _build.load("flash_attention")
@@ -155,17 +169,20 @@ def _launch(route: str, q, k, v, out, *, causal: bool, window: int,
     else:
         q, k, v = _aligned(q), _aligned(k), _aligned(v)
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    if lse is not None and route == "split_decode":
+        raise ValueError("flash_attention_cuda: split_decode writes no lse")
+    lse_ptr = None if lse is None else lse.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route == "scalar":
             rc = lib.craft_flash_attention(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, hq, hkv, lq, lk, d, *strides, sm_scale, int(causal),
+                lse_ptr, b, hq, hkv, lq, lk, d, *strides, sm_scale, int(causal),
                 window, q_offset, kv_len, _DTYPES[q.dtype], stream)
         elif route == "tc_prefill":
             rc = lib.craft_flash_prefill_tc(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, hq, hkv, lq, lk, d, *strides, sm_scale, int(causal),
+                lse_ptr, b, hq, hkv, lq, lk, d, *strides, sm_scale, int(causal),
                 window, q_offset, kv_len, stream)
         elif route == "split_decode":
             k_begin, k_end = key_range(lq, lk, causal, window or None,

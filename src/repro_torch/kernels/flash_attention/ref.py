@@ -10,6 +10,11 @@ The scores are materialized a slab of query rows at a time, so memory
 stays bounded at the serving path's full size (danube's prefill would need
 17 GB of float32 scores at once); each row's arithmetic is the reference's.
 
+:func:`attention_lse_ref` also returns each row's log-sum-exp of its
+scaled scores, the residual of the training backward: ``m + log(sum exp(s
+- m))``, and -1e30 for a row that sees no key (:data:`EMPTY_LSE`, the
+reference's blocked forward, ``repro/kernels/flash_attention/blocked.py``).
+
 :func:`attention_split_ref` is the split-KV decode route's arithmetic
 written plainly: per split of the keys, the partials (o, m, l) in base 2,
 then their combination.
@@ -22,6 +27,7 @@ import torch
 
 _SCORES = 1 << 27            # float32 score elements held at once (512 MiB)
 _LOG2E = 1.4426950408889634
+EMPTY_LSE = -1e30            # lse of a row with no visible key
 
 
 def attention_ref(
@@ -35,6 +41,23 @@ def attention_ref(
     q_offset: int = 0,
     kv_len: Optional[int] = None,
 ) -> torch.Tensor:
+    return _attention(q, k, v, causal, window, sm_scale, q_offset, kv_len,
+                      False)[0]
+
+
+def attention_lse_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, window: Optional[int] = None,
+    sm_scale: Optional[float] = None, q_offset: int = 0,
+    kv_len: Optional[int] = None,
+):
+    """(out in q's dtype, lse float32 (B, Hq, Lq)) of :func:`attention_ref`."""
+    return _attention(q, k, v, causal, window, sm_scale, q_offset, kv_len,
+                      True)
+
+
+def _attention(q, k, v, causal, window, sm_scale, q_offset, kv_len,
+               with_lse: bool):
     b, hq, lq, dqk = q.shape
     _, hkv, lk, _ = k.shape
     dv = v.shape[-1]
@@ -47,6 +70,8 @@ def attention_ref(
     kpos = torch.arange(lk, device=q.device)[None, :]       # (1, Lk)
     out = torch.empty((b, hkv, group, lq, dv), dtype=torch.float32,
                       device=q.device)
+    lse = (torch.empty((b, hkv, group, lq), dtype=torch.float32,
+                       device=q.device) if with_lse else None)
     step = max(1, _SCORES // max(1, b * hq * lk))
     for i0 in range(0, lq, step):
         n = min(step, lq - i0)
@@ -61,12 +86,18 @@ def attention_ref(
         if kv_len is not None:
             mask &= kpos < kv_len
         s = s.masked_fill(~mask, float("-inf"))
-        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
         denom = p.sum(dim=-1, keepdim=True)
+        if with_lse:
+            lse[:, :, :, i0:i0 + n] = torch.where(
+                denom > 0, m + torch.log(torch.where(denom > 0, denom, 1.0)),
+                EMPTY_LSE)[..., 0]
         p = torch.where(denom > 0,
                         p / torch.where(denom == 0, 1.0, denom), 0.0)
         out[:, :, :, i0:i0 + n] = torch.einsum("bhgqk,bhkd->bhgqd", p, vf)
-    return out.reshape(b, hq, lq, dv).to(q.dtype)
+    out = out.reshape(b, hq, lq, dv).to(q.dtype)
+    return out, (lse.reshape(b, hq, lq) if with_lse else None)
 
 
 def attention_split_ref(

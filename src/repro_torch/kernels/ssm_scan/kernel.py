@@ -31,13 +31,19 @@ tiles copied ahead), so it wins from L = 64 on even as a single chunk.
 Decode (L = 1) always takes the sequential route: one launch a call.
 See the source for the design and the bounds.
 
+With ``return_states=True`` the wrappers take the chunked route at any L
+(the sequential route keeps no chunk states, so naming it raises) and also
+return its scratch, which the carry leaves holding each chunk's incoming
+state (float32 (B, ceil(L / CHUNK), *state)): the residual of the training
+backward.  A width that the chunked route does not take raises.
+
 ``ssd_scan_cuda.launches`` and ``s6_scan_cuda.launches`` count the wrapper
 calls that launched (one per call, whatever the route), ``.routes`` the
 calls of each route.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import torch
 
@@ -63,18 +69,24 @@ def threads_per_row(st: int) -> int:
     return t
 
 
+def chunked_fits(h0_shape: Sequence[int]) -> bool:
+    """Whether the chunked route takes a state of ``h0_shape`` (mamba2's
+    head of hd rows must split into :data:`CHUNK_ROWS`-row slices over at
+    most :data:`CHUNK_THREADS` threads; every mamba1 width fits)."""
+    if len(h0_shape) != 4:
+        return True
+    _, _, hd, st = h0_shape
+    return (hd % CHUNK_ROWS == 0
+            and hd // CHUNK_ROWS * threads_per_row(st) <= CHUNK_THREADS)
+
+
 def choose_route(l: int, h0_shape: Sequence[int]) -> str:
     """The scan route for ``l`` steps from a state of ``h0_shape``: (B, nh,
     hd, st) for mamba2, (B, di, st) for mamba1."""
     mamba2 = len(h0_shape) == 4
     if l < CHUNKED_MIN_L["ssd_scan" if mamba2 else "s6_scan"]:
         return "sequential"
-    if mamba2:
-        _, _, hd, st = h0_shape
-        if (hd % CHUNK_ROWS
-                or hd // CHUNK_ROWS * threads_per_row(st) > CHUNK_THREADS):
-            return "sequential"
-    return "chunked"
+    return "chunked" if chunked_fits(h0_shape) else "sequential"
 
 
 def _check(what: str, dtx, bh, ch, dt, A, h0) -> None:
@@ -96,10 +108,19 @@ def _check(what: str, dtx, bh, ch, dt, A, h0) -> None:
         raise ValueError(f"{what}: state size {st} not in 1..{ST_MAX}")
 
 
-def _route(what: str, route: Optional[str], l: int, h0_shape) -> str:
+def _route(what: str, route: Optional[str], l: int, h0_shape,
+           return_states: bool) -> str:
+    if return_states:
+        route = "chunked" if route is None else route
+        if route != "chunked":
+            raise ValueError(f"{what}: only the chunked route keeps the "
+                             f"chunk states, not {route!r}")
     route = choose_route(l, h0_shape) if route is None else route
     if route not in ROUTES:
         raise ValueError(f"{what}: route {route!r} not in {ROUTES}")
+    if route == "chunked" and not chunked_fits(h0_shape):
+        raise ValueError(f"{what}: the chunked route does not take a state "
+                         f"of {tuple(h0_shape)}")
     return route
 
 
@@ -111,14 +132,16 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32).contiguous()
 
 
-def ssd_scan_cuda(dtx, bh, ch, dt, A, h0, *, route: Optional[str] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+def ssd_scan_cuda(dtx, bh, ch, dt, A, h0, *, route: Optional[str] = None,
+                  return_states: bool = False):
     """mamba2 scan of CUDA tensors.  dtx (B, L, nh, hd); bh/ch
     (B, L, nh, st) (stride-0 head axes accepted, as a broadcast of grouped
     B/C); dt (B, L, nh); A (nh,); h0 (B, nh, hd, st).  dtx, bh, ch float32
     or bfloat16 (one type); dt, A, h0 are taken as float32.  ``route``
-    names one of :data:`ROUTES` (default :func:`choose_route`).  Returns
-    (y (B, L, nh, hd) in dtx's dtype, h_last (B, nh, hd, st) float32)."""
+    names one of :data:`ROUTES` (default :func:`choose_route`, or chunked
+    with ``return_states``).  Returns (y (B, L, nh, hd) in dtx's dtype,
+    h_last (B, nh, hd, st) float32), and with ``return_states`` the
+    chunked route's chunk-entry states (B, nc, nh, hd, st)."""
     _check("ssd_scan_cuda", dtx, bh, ch, dt, A, h0)
     b, l, nh, hd = dtx.shape
     st = bh.shape[-1]
@@ -129,13 +152,15 @@ def ssd_scan_cuda(dtx, bh, ch, dt, A, h0, *, route: Optional[str] = None
             f"ssd_scan_cuda: shapes dtx {tuple(dtx.shape)}, bh "
             f"{tuple(bh.shape)}, ch {tuple(ch.shape)}, dt {tuple(dt.shape)}, "
             f"A {tuple(A.shape)}, h0 {tuple(h0.shape)} do not agree")
-    route = _route("ssd_scan_cuda", route, l, h0.shape)
+    route = _route("ssd_scan_cuda", route, l, h0.shape,
+                   return_states)
     dtx, bh, ch = (_last_contiguous(t) for t in (dtx, bh, ch))
     dt = dt.to(torch.float32)
     A, h0 = _f32(A), _f32(h0)
     y = torch.empty((b, l, nh, hd), dtype=dtx.dtype, device=dtx.device)
     if l == 0:
-        return y, h0.clone()
+        empty = h0.new_empty((b, 0, nh, hd, st))
+        return (y, h0.clone(), empty) if return_states else (y, h0.clone())
     h_last = torch.empty((b, nh, hd, st), dtype=torch.float32,
                          device=dtx.device)
     strides = (dtx.stride(0), dtx.stride(1), dtx.stride(2), bh.stride(0),
@@ -143,6 +168,7 @@ def ssd_scan_cuda(dtx, bh, ch, dt, A, h0, *, route: Optional[str] = None
                ch.stride(2), dt.stride(0), dt.stride(1), dt.stride(2))
     ptrs = (dtx.data_ptr(), bh.data_ptr(), ch.data_ptr(), dt.data_ptr(),
             A.data_ptr(), h0.data_ptr(), y.data_ptr(), h_last.data_ptr())
+    states = None
     lib = _build.load("ssm_scan")
     with torch.cuda.device(dtx.device):
         stream = torch.cuda.current_stream(dtx.device).cuda_stream
@@ -160,20 +186,21 @@ def ssd_scan_cuda(dtx, bh, ch, dt, A, h0, *, route: Optional[str] = None
                                     _DTYPES[dtx.dtype], stream)
     _build.check(rc, f"ssd_scan_cuda ({route})")
     _build.count_launch(ssd_scan_cuda, route)
-    return y, h_last
+    return (y, h_last, states) if return_states else (y, h_last)
 
 
 ssd_scan_cuda.launches = 0
 ssd_scan_cuda.routes = dict.fromkeys(ROUTES, 0)
 
 
-def s6_scan_cuda(dtx, bh, ch, dt, A, h0, *, route: Optional[str] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def s6_scan_cuda(dtx, bh, ch, dt, A, h0, *, route: Optional[str] = None,
+                 return_states: bool = False):
     """mamba1 scan of CUDA tensors.  dtx/dt (B, L, di); bh/ch (B, L, st);
     A (di, st); h0 (B, di, st).  dtx, bh, ch float32 or bfloat16 (one
     type); dt, A, h0 are taken as float32.  ``route`` as in
     :func:`ssd_scan_cuda`.  Returns (y (B, L, di) in dtx's dtype, h_last
-    (B, di, st) float32)."""
+    (B, di, st) float32), and with ``return_states`` the chunked route's
+    chunk-entry states (B, nc, di, st)."""
     _check("s6_scan_cuda", dtx, bh, ch, dt, A, h0)
     b, l, di = dtx.shape
     st = bh.shape[-1]
@@ -184,18 +211,21 @@ def s6_scan_cuda(dtx, bh, ch, dt, A, h0, *, route: Optional[str] = None
             f"s6_scan_cuda: shapes dtx {tuple(dtx.shape)}, bh "
             f"{tuple(bh.shape)}, ch {tuple(ch.shape)}, dt {tuple(dt.shape)}, "
             f"A {tuple(A.shape)}, h0 {tuple(h0.shape)} do not agree")
-    route = _route("s6_scan_cuda", route, l, h0.shape)
+    route = _route("s6_scan_cuda", route, l, h0.shape,
+                   return_states)
     dtx, bh, ch = (_last_contiguous(t) for t in (dtx, bh, ch))
     dt = _last_contiguous(dt.to(torch.float32))
     A, h0 = _f32(A), _f32(h0)
     y = torch.empty((b, l, di), dtype=dtx.dtype, device=dtx.device)
     if l == 0:
-        return y, h0.clone()
+        empty = h0.new_empty((b, 0, di, st))
+        return (y, h0.clone(), empty) if return_states else (y, h0.clone())
     h_last = torch.empty((b, di, st), dtype=torch.float32, device=dtx.device)
     strides = (dtx.stride(0), dtx.stride(1), bh.stride(0), bh.stride(1),
                ch.stride(0), ch.stride(1), dt.stride(0), dt.stride(1))
     ptrs = (dtx.data_ptr(), bh.data_ptr(), ch.data_ptr(), dt.data_ptr(),
             A.data_ptr(), h0.data_ptr(), y.data_ptr(), h_last.data_ptr())
+    states = None
     lib = _build.load("ssm_scan")
     with torch.cuda.device(dtx.device):
         stream = torch.cuda.current_stream(dtx.device).cuda_stream
@@ -213,7 +243,7 @@ def s6_scan_cuda(dtx, bh, ch, dt, A, h0, *, route: Optional[str] = None
                                    _DTYPES[dtx.dtype], stream)
     _build.check(rc, f"s6_scan_cuda ({route})")
     _build.count_launch(s6_scan_cuda, route)
-    return y, h_last
+    return (y, h_last, states) if return_states else (y, h_last)
 
 
 s6_scan_cuda.launches = 0

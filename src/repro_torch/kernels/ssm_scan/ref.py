@@ -68,21 +68,27 @@ def s6_scan_ref(dtx, bh, ch, dt, A, h0):
     return _naive(dtx, bh, ch, dt, A, h0)
 
 
-def chunked_scan_ref(dtx, bh, ch, dt, A, h0, chunk: int = 256):
+def chunked_scan_ref(dtx, bh, ch, dt, A, h0, chunk: int = 256,
+                     return_states: bool = False):
     """The reference model's chunked scan (``_fused_ssd_scan``), either
     variant by the rank of ``dtx``: an associative scan inside chunks of
     ``chunk`` steps, the state carried from chunk to chunk, so nothing
     L-by-state is ever held (memory stays bounded at full size).
 
-    Returns (y (B, L, *head) float32 as the reference's, h_last).
+    Returns (y (B, L, *head) float32 as the reference's, h_last), and with
+    ``return_states`` also each chunk's incoming state, float32 (B, nc,
+    *state) for chunks of ``min(chunk, L)`` steps (the training backward's
+    residual).
     """
     l = dtx.shape[1]
     chunk = max(1, min(chunk, l))
     A = A.float()
     h = h0.float()
-    ys = []
+    ys, h_in = [], []
     for t0 in range(0, l, chunk):
         sl = slice(t0, t0 + chunk)
+        if return_states:
+            h_in.append(h)
         decay, inject = _terms(dtx[:, sl], bh[:, sl], dt[:, sl], A)
         prod, acc = _assoc_scan(decay, inject)
         h_all = prod * h[:, None] + acc
@@ -91,10 +97,15 @@ def chunked_scan_ref(dtx, bh, ch, dt, A, h0, chunk: int = 256):
         del decay, inject, prod, acc, h_all
     y = torch.cat(ys, dim=1) if ys else torch.empty(
         dtx.shape, dtype=torch.float32, device=dtx.device)
+    if return_states:
+        states = (torch.stack(h_in, dim=1) if h_in else h.new_empty(
+            (h.shape[0], 0) + h.shape[1:]))
+        return y, h, states
     return y, h
 
 
-def chunk_passes_ref(dtx, bh, ch, dt, A, h0, chunk: int):
+def chunk_passes_ref(dtx, bh, ch, dt, A, h0, chunk: int,
+                     return_states: bool = False):
     """The chunked route's three passes (``csrc/ssm_scan.cu``), either
     variant by the rank of ``dtx``, with chunks of ``chunk`` steps (one
     chunk of L where ``chunk`` >= L; the ragged tail is padded with dt = 0
@@ -107,7 +118,9 @@ def chunk_passes_ref(dtx, bh, ch, dt, A, h0, chunk: int):
     3. each chunk's outputs: the recurrence replayed over its steps from
        ``h_in[c]``.
 
-    Returns (y in dtx's dtype, h_last float32)."""
+    Returns (y in dtx's dtype, h_last float32), and with ``return_states``
+    the carry's ``h_in`` of every chunk, float32 (B, nc, *state): what the
+    chunked route leaves in its scratch."""
     mamba2 = dtx.dim() == 4
     b, l = dtx.shape[:2]
     q = max(1, min(int(chunk), l))
@@ -152,4 +165,6 @@ def chunk_passes_ref(dtx, bh, ch, dt, A, h0, chunk: int):
             hc = decay * hc + x[:, :, t, :, None] * bc[:, :, t, None, :]
             ys.append(torch.einsum("bcds,bcs->bcd", hc, cc[:, :, t]))
     y = torch.stack(ys, dim=2).reshape((b, nc * q) + dtx.shape[2:])
+    if return_states:
+        return y[:, :l].to(dtx.dtype), h, torch.stack(h_in, dim=1)
     return y[:, :l].to(dtx.dtype), h

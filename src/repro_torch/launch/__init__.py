@@ -1,1 +1,1 @@
-"""Drivers of the LM workload (the serving driver in this slice)."""
+"""Drivers of the LM workload: training and serving."""

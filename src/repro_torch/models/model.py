@@ -12,8 +12,14 @@ slices of the port and raise here.
 Parameters keep the reference's tree and layer-stacked layout: ``blocks``
 leaves are ``(n_layers, ...)``; ``shared_block`` and ``lm_head`` are as
 there.  The reference's ``lax.scan`` over layers is a Python loop over the
-stacked leaves; ``remat`` and the mesh constraints are training/mesh
-concerns and have no counterpart here.
+stacked leaves; the mesh constraints have no counterpart here.
+
+Training is ``forward_hidden`` without a cache.  Where autograd records,
+``cfg.remat`` (the default) wraps every block in
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, as the
+reference wraps its blocks in ``jax.checkpoint``: only each block's input
+is kept, and the backward reruns the block's forward (its hand kernels
+included) before differentiating it.
 
 Caches keep the reference's tree too (``{"layers": {...stacked},
 "shared": {...stacked}}``, same leaf names, shapes and dtypes), so a decode
@@ -28,6 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.utils._pytree as pytree
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks as blk
 from repro_torch.models.common import ModelConfig
@@ -54,6 +61,17 @@ def _served(cfg: ModelConfig) -> None:
 
 def _layer_slice(tree, i: int):
     return pytree.tree_map(lambda x: x[i], tree)
+
+
+def _layers(tree, n: int) -> list:
+    """The ``n`` per-layer trees of a layer-stacked tree, taken at once
+    with ``unbind``: under autograd its backward stacks the layers'
+    gradients in one pass, where ``x[i]`` once a layer would add a
+    zero-filled gradient of the whole stacked leaf n times."""
+    leaves, spec = pytree.tree_flatten(tree)
+    per = [x.unbind(0) for x in leaves]
+    return [pytree.tree_unflatten([p[i] for p in per], spec)
+            for i in range(n)]
 
 
 # ==========================================================================
@@ -114,14 +132,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
 # ==========================================================================
 # forward
 # ==========================================================================
-def _run_stack(block_apply, stacked_params, x, caches=None):
+def _remat(block_apply, cfg: ModelConfig, cache):
+    """``block_apply`` under activation checkpointing where the reference
+    remats (training: no cache, ``cfg.remat``) and autograd records."""
+    if cache is not None or not cfg.remat or not torch.is_grad_enabled():
+        return block_apply
+
+    def fn(p, h, c):
+        return checkpoint(block_apply, p, h, c, use_reentrant=False)
+
+    return fn
+
+
+def _run_stack(block_apply, stacked_params, x, cfg: ModelConfig,
+               caches=None):
     """Run a homogeneous stack of blocks, layer by layer; the stacked
     caches are updated in place.  Returns (x, aux)."""
     n = pytree.tree_leaves(stacked_params)[0].shape[0]
+    fn = _remat(block_apply, cfg, caches)
     aux = 0.0
-    for i in range(n):
+    for i, p in enumerate(_layers(stacked_params, n)):
         c = _layer_slice(caches, i) if caches is not None else None
-        x, _, a = block_apply(_layer_slice(stacked_params, i), x, c)
+        x, _, a = fn(p, x, c)
         aux = aux + a
     return x, aux
 
@@ -168,7 +200,7 @@ def forward_hidden(
     else:
         caches = cache["layers"] if cache is not None else None
         fn = t_apply if cfg.family == "dense" else s_apply
-        x, aux = _run_stack(fn, params["blocks"], x, caches)
+        x, aux = _run_stack(fn, params["blocks"], x, cfg, caches)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return x, cache, aux
 
@@ -194,6 +226,10 @@ def _hybrid_forward(params, x, cfg, positions, cache):
     The caches are updated in place.  Returns (x, aux)."""
     every = cfg.shared_attn_every or cfg.n_layers + 1
     n_shared = cfg.n_layers // every if cfg.shared_attn_every else 0
+    s_fn = _remat(lambda p, h, c: blk.sblock_apply(p, h, cfg, c), cfg, cache)
+    t_fn = _remat(lambda p, h, c: blk.tblock_apply(p, h, cfg, positions, c),
+                  cfg, cache)
+    blocks = _layers(params["blocks"], cfg.n_layers)
     aux = 0.0
     layer = 0
     for g in range(max(1, (cfg.n_layers + every - 1) // every)):
@@ -201,14 +237,12 @@ def _hybrid_forward(params, x, cfg, positions, cache):
         for i in range(layer, hi):
             c = (_layer_slice(cache["layers"], i)
                  if cache is not None else None)
-            x, _, a = blk.sblock_apply(_layer_slice(params["blocks"], i), x,
-                                       cfg, c)
+            x, _, a = s_fn(blocks[i], x, c)
             aux = aux + a
         layer = hi
         if cfg.shared_attn_every and g < n_shared:
             c = (_layer_slice(cache["shared"], g)
                  if cache is not None else None)
-            x, _, a = blk.tblock_apply(params["shared_block"], x, cfg,
-                                       positions, c)
+            x, _, a = t_fn(params["shared_block"], x, c)
             aux = aux + a
     return x, aux

@@ -1,1 +1,1 @@
-"""Step functions of the LM workload (serving steps in this slice)."""
+"""Step functions of the LM workload: training and serving."""

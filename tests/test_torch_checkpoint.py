@@ -338,15 +338,21 @@ def test_cuda_is_the_default_device(tmp_path):
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    """Every module of the package, found by walking it, imports."""
+    """Every module of the package, found by walking it, imports; the walk
+    must find the training slice's modules among them."""
     code = ("import importlib, pkgutil, sys, repro_torch; "
             "mods = [m.name for m in pkgutil.walk_packages("
             "repro_torch.__path__, 'repro_torch.')]; "
             "[importlib.import_module(m) for m in mods]; "
+            "need = {'repro_torch.data.pipeline', 'repro_torch.optim.adamw', "
+            "'repro_torch.train.steps', 'repro_torch.launch.train', "
+            "'repro_torch.kernels.flash_attention.blocked', "
+            "'repro_torch.kernels.ssm_scan.backward'}; "
+            "missing = sorted(need - set(mods)); "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
-            "m.startswith('repro.')); print(len(mods), bad); "
-            "sys.exit(1 if bad or len(mods) < 40 else 0)")
+            "m.startswith('repro.')); print(len(mods), bad, missing); "
+            "sys.exit(1 if bad or missing or len(mods) < 48 else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr

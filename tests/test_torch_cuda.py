@@ -21,21 +21,26 @@ from repro_torch.kernels.checksum import ops as ck_ops
 from repro_torch.kernels.checksum.kernel import checksum_rows
 from repro_torch.kernels.checksum.ref import checksum_rows_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
+                                                     attention_ref)
 from repro_torch.kernels.rs_erasure import ops as rs_ops
 from repro_torch.kernels.rs_erasure.kernel import gf_matmul_cuda
 from repro_torch.kernels.snapshot.kernel import snapshot_chunks_cuda
 from repro_torch.kernels.snapshot.ref import snapshot_ref
 from repro_torch.kernels.ssm_scan import kernel as scan_kernel
+from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.kernels.ssm_scan.kernel import s6_scan_cuda, ssd_scan_cuda
-from repro_torch.kernels.ssm_scan.ref import (chunk_passes_ref, s6_scan_ref,
+from repro_torch.kernels.ssm_scan.ref import (chunk_passes_ref,
+                                              chunked_scan_ref, s6_scan_ref,
                                               ssd_scan_ref)
 from repro_torch.kernels.xor_parity import ops as xor_ops
 from repro_torch.kernels.xor_parity.kernel import xor_reduce_cuda
 from repro_torch.kernels.xor_parity.ref import xor_reduce_ref
 from repro_torch.launch import serve
 from repro_torch.models import model as M
+from repro_torch.optim import adamw
 from repro_torch.train import steps as S
 
 pytestmark = pytest.mark.cuda
@@ -483,3 +488,184 @@ def test_tiny_bf16_logits_on_the_card_match_cpu(cuda, arch):
     assert used["scalar"] == 0
     assert used["tc_prefill"] > 0 and used["split_decode"] > 0
     assert used["split_decode"] == gen * used["tc_prefill"]
+
+
+# ------------------------------------------------ the training path (lse,
+# the autograd Functions, AdamW on the card)
+LSE_CASES = [
+    # (b, hq, hkv, lq, lk, d, causal, window, q_offset, kv_len)
+    (1, 2, 2, 128, 128, 64, True, None, 0, None),
+    (2, 8, 2, 100, 260, 80, True, None, 160, None),     # GQA 4, ragged
+    (1, 4, 1, 200, 200, 80, True, 16, 0, None),         # window
+    (2, 2, 2, 140, 140, 64, True, 8, 0, 4),             # rows with no key
+    (1, 2, 2, 100, 100, 64, False, None, 0, 0),         # kv_len 0
+    (1, 2, 1, 40, 40, 64, True, None, 0, None),         # 40 rows: scalar
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", LSE_CASES)
+def test_flash_lse_matches_plain(cuda, case, dtype):
+    """The kernel's log-sum-exp on the tc_prefill (bf16, more than 64 rows)
+    and scalar routes against the plain version's; -1e30 exactly where a
+    row sees no key."""
+    b, hq, hkv, lq, lk, d, causal, window, q_offset, kv_len = case
+    g = torch.Generator(device=cuda).manual_seed(lq + lk + d)
+    q = torch.randn((b, hq, lq, d), generator=g, device=cuda, dtype=dtype)
+    k = torch.randn((b, hkv, lk, d), generator=g, device=cuda, dtype=dtype)
+    v = torch.randn((b, hkv, lk, d), generator=g, device=cuda, dtype=dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    routes = dict(flash_attention_cuda.routes)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    want = ("tc_prefill" if dtype == torch.bfloat16 and lq * hq // hkv > 64
+            else "scalar")
+    assert flash_attention_cuda.routes[want] == routes[want] + 1
+    out_r, lse_r = attention_lse_ref(q, k, v, **kw)
+    assert lse.dtype == torch.float32 and lse.shape == (b, hq, lq)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), out_r.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, lse_r, rtol=1e-5, atol=1e-4)
+    empty = lse_r == -1e30
+    if kv_len in (0, 4):
+        assert bool(empty.any())
+    assert torch.equal(lse == -1e30, empty)
+
+
+GRAD_CASES = [
+    # (b, hq, hkv, l, d, window)
+    (1, 2, 2, 160, 64, None),
+    (2, 8, 2, 130, 80, None),
+    (1, 4, 4, 200, 80, 32),
+    (1, 8, 2, 96, 64, 40),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", GRAD_CASES)
+def test_attention_fn_grads_match_plain(cuda, case, dtype):
+    """The attention Function (kernel forward, blocked backward) against
+    the plain version's autograd in float32 on the same values: output and
+    gradients within 1e-4 (float32) or 2e-2 (bf16) of each one's max."""
+    b, hq, hkv, l, d, window = case
+    g = torch.Generator(device=cuda).manual_seed(l * d)
+    q, k, v = (torch.randn((b, h, l, d), generator=g, device=cuda,
+                           dtype=dtype) for h in (hq, hkv, hkv))
+    dout = torch.randn((b, hq, l, d), generator=g, device=cuda, dtype=dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    launches = flash_attention_cuda.launches
+    out = fa_ops.attention(*leaves, causal=True, window=window)
+    out.backward(dout)
+    assert flash_attention_cuda.launches == launches + 1
+    ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    out_r = attention_ref(*ref_leaves, causal=True, window=window)
+    out_r.backward(dout.float())
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for got, want in zip([out] + [t.grad for t in leaves],
+                         [out_r] + [t.grad for t in ref_leaves]):
+        assert got.dtype == dtype
+        err = float((got.detach().float() - want).abs().max())
+        assert err <= tol * float(want.abs().max()), err
+
+
+SCAN_GRAD_CASES = [
+    (True, (2, 3, 64, 64)),      # zamba2's head layout
+    (False, (2, 100, 16)),       # falcon-mamba's state
+]
+
+
+@pytest.mark.parametrize("l", [40, 300, 1000])
+@pytest.mark.parametrize("case", SCAN_GRAD_CASES)
+def test_scan_fn_grads_match_plain(cuda, case, l):
+    """The scan Function, whose forward takes the chunked route at every
+    L (40: one ragged chunk, where serving takes the sequential route; 300
+    and 1000: several), its chunk states from the kernel, against the
+    plain chunked scan's autograd, float32, h0 != 0, a stride-0 head axis
+    of B/C for mamba2: every gradient within 1e-4 of its max."""
+    mamba2, rest = case
+    args = list(_scan_inputs(cuda, (rest[0], l, *rest[1:]), torch.float32,
+                             l, mamba2=mamba2))
+    if mamba2:
+        base = [args[1][:, :, :1].clone(), args[2][:, :, :1].clone()]
+    else:
+        base = [args[1].clone(), args[2].clone()]
+    g = torch.Generator(device=cuda).manual_seed(l + 1)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in
+                  (args[0], base[0], base[1], args[3], args[4], args[5])]
+        bh, ch = leaves[1], leaves[2]
+        if mamba2:
+            bh, ch = bh.expand_as(args[1]), ch.expand_as(args[2])
+        y, h = fn(leaves[0], bh, ch, *leaves[3:])
+        return leaves, y, h
+
+    fn = ssd_scan_cuda if mamba2 else s6_scan_cuda
+    routes = dict(fn.routes)
+    leaves, y, h = run(lambda *a: scan_ops.selective_scan(*a, chunk=64))
+    assert fn.routes == {**routes, "chunked": routes["chunked"] + 1}
+    dy = torch.randn(y.shape, generator=g, device=cuda)
+    dh = torch.randn(h.shape, generator=g, device=cuda)
+    ((y * dy).sum() + (h * dh).sum()).backward()
+    ref_leaves, y_r, h_r = run(
+        lambda *a: chunked_scan_ref(*a, chunk=scan_kernel.CHUNK))
+    ((y_r * dy).sum() + (h_r * dh).sum()).backward()
+    for i, (got, want) in enumerate(zip(leaves, ref_leaves)):
+        err = float((got.grad - want.grad).abs().max())
+        assert err <= 1e-4 * float(want.grad.abs().max()), (i, err)
+
+
+@pytest.mark.parametrize("l", [300, 1000])
+@pytest.mark.parametrize("case", SCAN_ROUTE_CASES)
+def test_chunked_route_returns_the_carry_states(cuda, case, l):
+    """The chunked route's returned scratch: each chunk's incoming state,
+    against the carry of the plain three passes; the sequential route
+    keeps none, so asking it for them raises."""
+    args, fn = _route_args(cuda, case, l, torch.float32, 13)
+    y, h, states = fn(*args, route="chunked", return_states=True)
+    _, _, states_r = chunk_passes_ref(*args, chunk=scan_kernel.CHUNK,
+                                      return_states=True)
+    assert states.shape == states_r.shape
+    torch.testing.assert_close(states, states_r, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="only the chunked route"):
+        fn(*args, route="sequential", return_states=True)
+
+
+def _opt_tree(device, seed):
+    g = torch.Generator().manual_seed(seed)
+    shapes = {"w": (6, 40, 24), "emb": (50, 16), "ln": (6, 24), "b": (3,),
+              "s": (2, 3)}
+    return {k: torch.randn(v, generator=g).to(device)
+            for k, v in shapes.items()}
+
+
+@pytest.mark.parametrize("master", [False, True])
+@pytest.mark.parametrize("bits", [32, 8])
+def test_adamw_sliced_on_the_card_equals_whole_on_cpu(cuda, bits, master,
+                                                     monkeypatch):
+    """Three AdamW steps on CUDA tensors updated in slices of the leading
+    axis (a slice of 100 values) against the same steps done whole on the
+    CPU: float32 values within 1e-6 relative, int8 moments within one
+    step.  No clipping (the two devices sum the norm in another order)."""
+    ocfg = adamw.OptimConfig(lr=1e-2, warmup_steps=1, state_bits=bits,
+                             master_fp32=master, clip_norm=1e9)
+    out = {}
+    for dev, elems in (("cpu", 1 << 30), (cuda, 100)):
+        monkeypatch.setattr(adamw, "SLICE_ELEMS", elems)
+        params = _opt_tree(dev, 0)
+        state = adamw.adamw_init(params, ocfg)
+        for i in range(3):
+            grads = _opt_tree(dev, 10 + i)
+            params, state, m = adamw.adamw_update(grads, state, params, ocfg)
+        out[str(dev)] = (params, state, float(m["grad_norm"]))
+    (p_c, s_c, n_c), (p_g, s_g, n_g) = out["cpu"], out[str(cuda)]
+    assert abs(n_c - n_g) <= 1e-6 * n_c
+    flat_c = torch.utils._pytree.tree_flatten_with_path((p_c, s_c))[0]
+    flat_g = torch.utils._pytree.tree_flatten_with_path((p_g, s_g))[0]
+    for (path, c), (_, gpu) in zip(flat_c, flat_g):
+        gpu = gpu.cpu()
+        if c.dtype == torch.int8:
+            assert int((c.int() - gpu.int()).abs().max()) <= 1, path
+        else:
+            torch.testing.assert_close(gpu, c, rtol=1e-6, atol=1e-7,
+                                       msg=lambda m: f"{path}: {m}")

@@ -435,6 +435,25 @@ def test_scan_choose_route(l, h0_shape, want):
     assert scan_kernel.choose_route(l, h0_shape) == want
 
 
+@pytest.mark.parametrize("route,l,h0_shape,want", [
+    (None, 40, (2, 80, 64, 64), "chunked"),      # short L: still chunked
+    (None, 1, (2, 8192, 16), "chunked"),
+    ("chunked", 8192, (2, 2, 128, 128), "chunked"),
+    ("sequential", 40, (2, 80, 64, 64), "only the chunked route"),
+    (None, 8192, (2, 2, 512, 128), "does not take a state"),
+    (None, 300, (2, 2, 30, 64), "does not take a state"),
+])
+def test_scan_states_come_from_the_chunked_route(route, l, h0_shape, want):
+    """Asked for the chunk states (the training forward), the wrappers take
+    the chunked route at every L, and raise for the sequential route or a
+    width the chunked route does not take."""
+    if want == "chunked":
+        assert scan_kernel._route("scan", route, l, h0_shape, True) == want
+    else:
+        with pytest.raises(ValueError, match=want):
+            scan_kernel._route("scan", route, l, h0_shape, True)
+
+
 # (mamba2, (b, l, *heads, st), blk of the Pallas kernel, stride-0 heads)
 CHUNK_CASES = [
     (True, (1, 37, 2, 8, 16), 16, False),       # ragged L, h0 != 0
@@ -482,3 +501,206 @@ def test_chunk_passes_keep_the_state_over_zero_dt():
     y, h = chunk_passes_ref(torch.zeros_like(dtx), bh, ch,
                             torch.zeros_like(dt), A, h0, chunk=8)
     assert torch.equal(h, h0)
+
+
+# ------------------------------------------------- the training path:
+# the attention Function (lse, blocked backward) and the scan Function
+# against the reference's VJPs, float32
+from repro.kernels.flash_attention import blocked as jax_blocked  # noqa: E402
+
+from repro_torch.kernels.flash_attention.blocked import (  # noqa: E402
+    attention_bwd)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    EMPTY_LSE, attention_lse_ref)
+from repro_torch.kernels.ssm_scan.backward import scan_bwd  # noqa: E402
+
+ATTN_GRAD_CASES = [
+    # (b, hq, hkv, lq, lk, d, causal, window, q_offset, kv_len)
+    (2, 4, 4, 37, 37, 16, True, None, 0, None),      # ragged L
+    (1, 8, 2, 50, 50, 8, True, None, 0, None),       # GQA 4
+    (2, 4, 1, 40, 40, 16, True, 12, 0, None),        # window, GQA 4
+    (1, 4, 2, 20, 60, 8, True, None, 40, None),      # q_offset
+    (1, 2, 2, 30, 30, 8, False, 8, 0, None),         # window, no causal
+    (1, 2, 1, 24, 70, 16, True, 10, 46, 60),         # window, offset, kv_len
+    (1, 2, 2, 16, 16, 8, True, None, 0, 0),          # no key for any row
+]
+
+
+def _attn_inputs(case, seed):
+    b, hq, hkv, lq, lk, d = case[:6]
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((b, hq, lq, d), (b, hkv, lk, d), (b, hkv, lk, d),
+                      (b, hq, lq, d))]
+
+
+@pytest.mark.parametrize("i", range(len(ATTN_GRAD_CASES)))
+def test_attention_fn_matches_reference_vjp(i):
+    """Output, lse and (dq, dk, dv) of the attention Function against the
+    reference's blocked attention (``_fwd``'s lse, ``jax.vjp`` of
+    ``blocked_attention`` with 16-key blocks), float32 within 1e-5; a row
+    that sees no key has lse -1e30 and adds no gradient."""
+    case = ATTN_GRAD_CASES[i]
+    _, _, _, _, lk, d, causal, window, q_offset, kv_len = case
+    q, k, v, g = _attn_inputs(case, i)
+    scale = d ** -0.5
+    kvl = lk if kv_len is None else kv_len
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    _, lse_r = jax_blocked._fwd(jq, jk, jv, causal, window, scale,
+                                q_offset, kvl, 16)
+    out_r, vjp = jax.vjp(lambda a, b_, c: blocked_attention(
+        a, b_, c, causal, window, scale, q_offset, kvl, 16, False),
+        jq, jk, jv)
+    grads_r = vjp(jnp.asarray(g))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              kv_len=kv_len)
+    out = fa_ops.attention(*leaves, **kw)
+    out.backward(torch.from_numpy(g))
+    _, lse = fa_ops.attention_lse(*(x.detach() for x in leaves), **kw)
+    for got, want in zip([out, lse] + [x.grad for x in leaves],
+                         [out_r, lse_r] + list(grads_r)):
+        np.testing.assert_allclose(_np32(got.detach()), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
+    if kv_len == 0:
+        assert bool((lse == EMPTY_LSE).all())
+        assert not any(bool(x.grad.any()) for x in leaves)
+
+
+@pytest.mark.parametrize("block", [1, 7, 1024])
+@pytest.mark.parametrize("i", [0, 2, 5])
+def test_blocked_backward_does_not_depend_on_the_block(i, block):
+    """The key block of the backward changes the sums' grouping only."""
+    case = ATTN_GRAD_CASES[i]
+    _, _, _, _, _, _, causal, window, q_offset, kv_len = case
+    q, k, v, g = (torch.from_numpy(x) for x in _attn_inputs(case, i))
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              kv_len=kv_len)
+    out, lse = attention_lse_ref(q, k, v, **kw)
+    ref = attention_bwd(q, k, v, out, lse, g, block=1024, **kw)
+    got = attention_bwd(q, k, v, out, lse, g, block=block, **kw)
+    for a, b_ in zip(got, ref):
+        torch.testing.assert_close(a, b_, rtol=1e-5, atol=1e-6)
+
+
+SCAN_GRAD_CASES = [
+    # (mamba2, b, l, heads, st, chunk, h0 nonzero)
+    (True, 2, 37, (3, 4), 5, 16, True),      # ragged L, three chunks
+    (True, 1, 50, (2, 8), 4, 7, False),      # h0 = 0
+    (True, 2, 16, (3, 4), 6, 16, True),      # one whole chunk
+    (False, 2, 37, (6,), 4, 16, True),
+    (False, 1, 50, (5,), 3, 7, False),
+    (False, 2, 5, (4,), 8, 16, True),        # L shorter than the chunk
+]
+
+
+def _scan_case(case, seed):
+    mamba2, b, l, heads, st, chunk, h0_nz = case
+    rng = np.random.default_rng(seed)
+    if mamba2:
+        nh, hd = heads
+        shapes = ((b, l, nh, hd), (b, l, nh, st), (b, l, nh, st),
+                  (b, l, nh), (nh,), (b, nh, hd, st))
+    else:
+        (di,) = heads
+        shapes = ((b, l, di), (b, l, st), (b, l, st), (b, l, di), (di, st),
+                  (b, di, st))
+    x, bm, cm, _, _, h0 = (rng.standard_normal(s).astype(np.float32)
+                           for s in shapes)
+    dt = rng.uniform(0.01, 0.5, shapes[3]).astype(np.float32)
+    dt[:, ::6] = 0.0
+    A = -rng.uniform(0.5, 2.0, shapes[4]).astype(np.float32)
+    if not h0_nz:
+        h0 = np.zeros_like(h0)
+    gy = rng.standard_normal(shapes[0]).astype(np.float32)
+    gh = rng.standard_normal(shapes[5]).astype(np.float32)
+    return [x, bm, cm, dt, A, h0], gy, gh, chunk
+
+
+def _jax_scan_grads(ins, gy, gh, chunk):
+    def f(*a):
+        y, h = _fused_ssd_scan(*a, chunk)
+        return jnp.sum(y * gy) + jnp.sum(h * gh)
+
+    return jax.grad(f, argnums=tuple(range(6)))(
+        *[jnp.asarray(x) for x in ins])
+
+
+@pytest.mark.parametrize("states", ["given", "passes"])
+@pytest.mark.parametrize("i", range(len(SCAN_GRAD_CASES)))
+def test_scan_fn_grads_match_reference(i, states):
+    """Gradients of (dtx, B, C, dt, A, h0) against ``jax.grad`` through
+    the reference model's chunked scan, float32 within 1e-4 of each one's
+    largest magnitude: through the scan Function (the chunk states its
+    forward kept) and through the backward given the states of the plain
+    three passes (the carry that the card's chunked route leaves)."""
+    ins, gy, gh, chunk = _scan_case(SCAN_GRAD_CASES[i], i)
+    want = _jax_scan_grads(ins, gy, gh, chunk)
+    if states == "given":
+        leaves = [torch.from_numpy(x).requires_grad_() for x in ins]
+        y, h = scan_ops.selective_scan(*leaves, chunk=chunk)
+        ((y * torch.from_numpy(gy)).sum()
+         + (h * torch.from_numpy(gh)).sum()).backward()
+        got = [x.grad for x in leaves]
+    else:
+        t = [torch.from_numpy(x) for x in ins]
+        states_in = chunk_passes_ref(*t, chunk=chunk, return_states=True)[2]
+        got = scan_bwd(*t, states_in, chunk, torch.from_numpy(gy),
+                       torch.from_numpy(gh))
+    for n, (g_, w) in enumerate(zip(got, want)):
+        w = np.asarray(w)
+        assert np.abs(_np32(g_) - w).max() <= 1e-4 * max(
+            np.abs(w).max(), 1e-30), n
+
+
+def test_scan_fn_sums_a_broadcast_head_axis():
+    """B/C as one group broadcast over the heads (the model's call): the
+    gradient of the group is the heads' sum, as the reference's."""
+    ins, gy, gh, chunk = _scan_case(SCAN_GRAD_CASES[0], 9)
+    bm1, cm1 = ins[1][:, :, :1], ins[2][:, :, :1]
+    nh = ins[1].shape[2]
+
+    def f(x, bg, cg, dt, A, h0):
+        y, h = _fused_ssd_scan(x, jnp.broadcast_to(bg, ins[1].shape),
+                               jnp.broadcast_to(cg, ins[2].shape), dt, A,
+                               h0, chunk)
+        return jnp.sum(y * gy) + jnp.sum(h * gh)
+
+    want = jax.grad(f, argnums=(1, 2))(*[jnp.asarray(x) for x in (
+        ins[0], bm1, cm1, ins[3], ins[4], ins[5])])
+    bg, cg = (torch.from_numpy(x).requires_grad_() for x in (bm1, cm1))
+    y, h = scan_ops.selective_scan(
+        torch.from_numpy(ins[0]), bg.expand(-1, -1, nh, -1),
+        cg.expand(-1, -1, nh, -1),
+        *[torch.from_numpy(x) for x in ins[3:]], chunk=chunk)
+    ((y * torch.from_numpy(gy)).sum()
+     + (h * torch.from_numpy(gh)).sum()).backward()
+    for g_, w in zip((bg.grad, cg.grad), want):
+        w = np.asarray(w)
+        assert np.abs(_np32(g_) - w).max() <= 1e-4 * np.abs(w).max()
+
+
+@pytest.mark.parametrize("chunk", [3, 16, 64])
+@pytest.mark.parametrize("mamba2", [True, False])
+def test_chunked_scan_ref_returns_its_chunk_states(mamba2, chunk):
+    """The plain chunked scan's incoming states equal the plain three
+    passes' carry, and the first is h0."""
+    ins, _, _, _ = _scan_case(SCAN_GRAD_CASES[0 if mamba2 else 3], 4)
+    t = [torch.from_numpy(x) for x in ins]
+    y, h, states = chunked_scan_ref(*t, chunk=chunk, return_states=True)
+    y2, h2, states2 = chunk_passes_ref(*t, chunk=chunk, return_states=True)
+    assert states.shape[1] == -(-t[0].shape[1] // chunk)
+    torch.testing.assert_close(states[:, 0], t[5])
+    torch.testing.assert_close(states, states2, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(h, h2, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("lq,group,route", [(64, 1, "scalar"),
+                                             (1, 4, "scalar"),
+                                             (65, 1, "tc_prefill"),
+                                             (4096, 1, "tc_prefill")])
+def test_choose_route_with_lse(lq, group, route):
+    """A call that must return lse never takes split_decode, which writes
+    none; bf16 prefill keeps tc_prefill."""
+    assert fa_kernel.choose_route(torch.bfloat16, lq, group, 80,
+                                  lse=True) == route
