@@ -22,12 +22,14 @@ Phases, each printing one JSON line:
    bfloat16 over GQA groups 1 and 4, D 16/40/64/80/128, ragged Lq/Lk,
    causal with and without a window, kv_len (0 too), q_offset, Lq = 1,
    fully masked rows and splits, each call's route (tc_prefill,
-   split_decode, scalar) checked against the wrapper's rule; then at the
-   serving path's shapes (danube and zamba2 prefill at B 2, L 8192; one
-   decode step over each full cache) in float32 and bfloat16, timed in
-   bfloat16 on its route and on the scalar route beside the plain version
-   and scaled_dot_product_attention, with the HMMA/HGMMA count of the
-   built library (cuobjdump -sass); ssd_scan and s6_scan at
+   split_decode, scalar) checked against the wrapper's rule; MLA's head
+   dims (dqk 192, dv 128) on each route in both dtypes; then at the
+   serving path's shapes (danube, zamba2 and deepseek-v3's MLA prefill at
+   B 2, L 8192; one decode step over each full cache) in float32 and
+   bfloat16, timed in bfloat16 on its route and on the scalar route beside
+   the plain version and scaled_dot_product_attention, with the
+   HMMA/HGMMA count of the built library (cuobjdump -sass); ssd_scan and
+   s6_scan at
    L = 1, ragged L, h0 != 0 and dt = 0 steps on the sequential route and
    at L = 1000 on the chunked one (each call's route checked against the
    wrapper's rule), then at (2, 8192, 80, 64, 64) and (2, 8192, 8192, 16)
@@ -68,15 +70,19 @@ Phases, each printing one JSON line:
    trees; the final state must equal (torch.equal) the same loop run
    without failures.
 7. serve — ``repro_torch.launch.serve.run`` on h2o-danube-1.8b,
-   zamba2-2.7b and falcon-mamba-7b at full width (their CONFIGs) in bf16,
-   random weights from a seeded generator, one model on the card at a
-   time: batch 2, an 8192-token prompt (longer than danube's 4096 window)
+   zamba2-2.7b, falcon-mamba-7b and deepseek-v3-671b at full width (their
+   CONFIGs; deepseek cut to depth 2, one dense and one MoE block beside
+   its MTP head's parameters, registered as ``deepseek-v3-671b-d2``) in
+   bf16, random weights from a seeded generator, one model on the card at
+   a time: batch 2, an 8192-token prompt (longer than danube's 4096 window)
    and 32 greedy tokens uninterrupted; the same with a decode checkpoint
    every 16 tokens (CRAFT_TIER_CHAIN=pfs, CRAFT_DEVICE_SNAPSHOT=1) failing
    at token 20; the resumed run must restart at token 16 and give the
    uninterrupted run's tokens, every logit finite, every attention call
-   of the prefill on the tc_prefill route, of the decode on split_decode,
-   none on scalar, and in each run every scan call of the prefill on the
+   of the prefill on the tc_prefill route (MLA's at dqk 192 / dv 128), of
+   the decode on split_decode (MLA's absorbed decode attends in latent
+   space with plain einsums, as the reference: no kernel call), none on
+   scalar, and in each run every scan call of the prefill on the
    chunked route and of the decode on the sequential one.  Then
    torch.profiler traces of a few decode steps (the device's busy time and
    idle share) and of one prefill (device seconds by kernel family).
@@ -212,7 +218,8 @@ def phase_build() -> dict:
         log = _build.BUILD_DIR / f"{name}.log"
         if log.exists():
             ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
-                           if "registers" in ln or "spill" in ln]
+                           if "registers" in ln or "spill" in ln
+                           or "entry function" in ln]
     return {"phase": "build", "seconds": secs, "card": card_line(),
             "ptxas": ptxas}
 
@@ -439,6 +446,7 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # as tests/test_kernels.py
 # up to 8224 keys, so |out| falls to about 0.02 and an atol of 2e-2 would
 # pass a dropped key tile; 2e-3 is about ten bf16 ulps of such a row
 ATTN_TOL_FULL = (2e-2, 2e-3)
+MLA_DQK, MLA_DV = 128 + 64, 128  # deepseek-v3's qk (nope + rope) and v dims
 # the scans against the plain chunked scan: the two associate the float
 # sums in another order and the state compounds it over L steps
 SCAN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 3e-2)}
@@ -484,6 +492,39 @@ def tensor_core_sass(name: str) -> dict:
                           capture_output=True, text=True).stdout
     return {op: len(re.findall(rf"\b{op}\b", sass))
             for op in ("HMMA", "HGMMA")}
+
+
+def mla_library(q, k, v, lq: int, kv_len) -> dict:
+    """PyTorch's fused attention timed on MLA's inputs (dqk 192, dv 128,
+    scale 192^-0.5), restricted to its fused backends (flash, memory
+    efficient, cuDNN): the math backend would hold every score at once.
+    Where none of them takes dv != dqk, ``library_ms`` is None and
+    ``library`` says why."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                SDPBackend.CUDNN_ATTENTION]
+    scale = q.shape[-1] ** -0.5
+    if lq > 1:
+        args, kw = (q, k, v), dict(is_causal=True, scale=scale)
+        what = "F.scaled_dot_product_attention(is_causal=True, scale)"
+    else:                          # decode: every cached key is visible
+        args = (q, k[:, :, :kv_len], v[:, :, :kv_len])
+        kw = dict(scale=scale)
+        what = "F.scaled_dot_product_attention(q, k[:kv_len], v[:kv_len])"
+
+    def call():
+        with sdpa_kernel(backends):
+            return F.scaled_dot_product_attention(*args, **kw)
+
+    try:
+        call()
+    except RuntimeError as exc:            # no fused backend takes the call
+        first = str(exc).strip().splitlines()[0][:200]
+        return {"library_ms": None, "library": f"none: {first}"}
+    return {"library_ms": cuda_ms(call), "library": what
+            + " (flash / memory-efficient / cuDNN backends)"}
 
 
 def lm_kernels(cases: list, timing: dict) -> None:
@@ -563,6 +604,46 @@ def lm_kernels(cases: list, timing: dict) -> None:
                           "route": route,
                           "max_abs_err": {"flash_attention": err}})
 
+    # ---- MLA's head dims (dqk = 128 + 64, dv = 128) on each route: bf16
+    # prefill on tc_prefill, float32 prefill on scalar, decode steps on
+    # split_decode in both dtypes
+    for case in [
+        # (b, h, lq, lk, q_offset, kv_len), causal, one kv head a q head
+        (1, 4, 200, 200, 0, None),
+        (2, 2, 333, 517, 184, None),          # ragged, q_offset
+        (1, 2, 140, 140, 0, 4),               # kv_len inside the tile
+        (1, 8, 1, 300, 299, 300),             # decode step
+        (2, 128, 1, 1000, 999, 1000),         # decode, MLA's 128 heads
+        (1, 2, 64, 64, 0, 0),                 # no key at all
+    ]:
+        b, h, lq, lk, q_offset, kv_len = case
+        kw = dict(causal=True, q_offset=q_offset, kv_len=kv_len)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn((b, lq, h, MLA_DQK), dtype).transpose(1, 2)
+            k = randn((b, h, lk, MLA_DQK), dtype)
+            v = randn((b, h, lk, MLA_DV), dtype)
+            r0 = dict(flash_attention_cuda.routes)
+            out, ref = flash_attention_cuda(q, k, v, **kw), attention_ref(
+                q, k, v, **kw)
+            torch.cuda.synchronize()
+            route = _route_of(r0, flash_attention_cuda.routes)
+            require(route == choose_route(dtype, lq, 1, MLA_DQK, MLA_DV)
+                    and out.shape == (b, h, lq, MLA_DV),
+                    f"flash_attention took {route} (out {tuple(out.shape)}) "
+                    f"on MLA {case} {dtype}")
+            tol = ATTN_TOL[dt_name[dtype]]
+            err = _err(out, ref)
+            require(torch.allclose(out.float(), ref.float(), rtol=tol,
+                                   atol=tol),
+                    f"flash_attention != plain on MLA {case} {dtype}: {err}")
+            if kv_len == 0:
+                require(not bool(out.any()), "a row with no key is not 0")
+            attn_err = max(attn_err, err)
+            cases.append({"case": f"flash MLA {case}", "dims": [MLA_DQK,
+                                                                MLA_DV],
+                          "dtype": dt_name[dtype], "route": route,
+                          "max_abs_err": {"flash_attention": err}})
+
     # ---- the serving path's attention shapes (bf16, B = 2, L = 8192)
     L, B = 8192, 2
     shapes = {
@@ -574,16 +655,22 @@ def lm_kernels(cases: list, timing: dict) -> None:
         # zamba2's growing cache (prompt 8192 + 32 generated)
         "danube_decode": (32, 8, 1, 4096, False, None, 0, 4096),
         "zamba2_decode": (32, 32, 1, L + 32, True, None, L + 31, L + 32),
+        # deepseek-v3's MLA prefill (128 heads re-expanded from the latent,
+        # dqk 192, dv 128) and one step of its re-expanded decode
+        "mla_prefill": (128, 128, L, L, True, None, 0, None),
+        "mla_decode": (128, 128, 1, L + 32, True, None, L + 31, L + 32),
     }
     attn = {}
     for name, (hq, hkv, lq, lk, causal, window, q_offset, kv_len) in \
             shapes.items():
+        dqk, dv = ((MLA_DQK, MLA_DV) if name.startswith("mla")
+                   else (HEAD_DIM, HEAD_DIM))
         kw = dict(causal=causal, window=window, q_offset=q_offset,
                   kv_len=kv_len)
         # float32 first, at the float32 tolerance: a wrong mask edge or
         # offset moves these rows by far more than 2e-5
-        q = randn((B, hq, lq, HEAD_DIM))
-        k, v = randn((B, hkv, lk, HEAD_DIM)), randn((B, hkv, lk, HEAD_DIM))
+        q = randn((B, hq, lq, dqk))
+        k, v = randn((B, hkv, lk, dqk)), randn((B, hkv, lk, dv))
         r0 = dict(flash_attention_cuda.routes)
         out, ref = (flash_attention_cuda(q, k, v, **kw),
                     attention_ref(q, k, v, **kw))
@@ -607,15 +694,16 @@ def lm_kernels(cases: list, timing: dict) -> None:
                 f"(ref std {ref_std})")
         del out, ref
         pairs = attn_pairs(lq, lk, causal, window, q_offset, kv_len)
-        flops = 4 * B * hq * pairs * HEAD_DIM
+        flops = 2 * (dqk + dv) * B * hq * pairs
         # each input read once: q, the visible K/V rows, the output written
         k_begin, k_end = key_range(lq, lk, causal, window, q_offset, kv_len)
-        nbytes = 2 * (2 * q.numel()
-                      + 2 * B * hkv * (k_end - k_begin) * HEAD_DIM)
-        kwl = dict(causal=causal, window=window or 0, sm_scale=HEAD_DIM ** -0.5,
+        nbytes = 2 * (q.numel() + B * hq * lq * dv
+                      + B * hkv * (k_end - k_begin) * (dqk + dv))
+        kwl = dict(causal=causal, window=window or 0, sm_scale=dqk ** -0.5,
                    q_offset=q_offset, kv_len=kv_len or lk)
-        scratch = torch.empty_like(q)
-        t = {"shape": {"q": list(q.shape), "kv": list(k.shape),
+        scratch = q.new_empty((B, hq, lq, dv))
+        t = {"shape": {"q": list(q.shape), "k": list(k.shape),
+                       "v": list(v.shape),
                        "causal": causal, "window": window,
                        "q_offset": q_offset, "kv_len": kv_len},
              "route": route, "float32_route": route32,
@@ -639,7 +727,9 @@ def lm_kernels(cases: list, timing: dict) -> None:
         t["TFLOPs"] = flops / (t["ms"] * 1e-3) / 1e12
         t["GBps"] = nbytes / (t["ms"] * 1e-3) / 1e9
         # PyTorch's fused attention on the same inputs (timed only)
-        if name == "zamba2_prefill":
+        if name.startswith("mla"):
+            t.update(mla_library(q, k, v, lq, kv_len))
+        elif name == "zamba2_prefill":
             t["library"] = "F.scaled_dot_product_attention(is_causal=True)"
             t["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True))
@@ -661,11 +751,15 @@ def lm_kernels(cases: list, timing: dict) -> None:
         del q, k, v, scratch
         torch.cuda.empty_cache()
     # the table's row: the zamba2 prefill, the shape where one library call
-    # computes the same function with no mask tensor
+    # computes the same function with no mask tensor; MLA's prefill beside
+    mla = attn["mla_prefill"]
     row = dict(attn["zamba2_prefill"])
     row.update({"max_abs_err": max(attn_err, max(
         a["max_abs_err"] for a in attn.values())), "shapes": attn,
-        "sass": tensor_core_sass("flash_attention")})
+        "sass": tensor_core_sass("flash_attention"),
+        "mla_prefill": {k: mla[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library", "max_abs_err", "float32_err")}})
     require(row["sass"]["HMMA"] + row["sass"]["HGMMA"] > 0,
             f"no tensor-core instruction in flash_attention: {row['sass']}")
     timing["flash_attention"] = row
@@ -1607,7 +1701,11 @@ def phase_aft(results: dict, scratch: Path) -> dict:
 
 
 # ---------------------------------------------------------------- phase 7
-SERVE_ARCHS = ("h2o-danube-1.8b", "zamba2-2.7b", "falcon-mamba-7b")
+# deepseek-v3-671b at its published widths, cut to depth 2 (one dense
+# block, one MoE block) beside its MTP head's parameters: 25.5 B
+# parameters, 51 GB in bf16; a third layer would take the weights to 74 GB
+MOE_ARCH = "deepseek-v3-671b-d2"
+SERVE_ARCHS = ("h2o-danube-1.8b", "zamba2-2.7b", "falcon-mamba-7b", MOE_ARCH)
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 2, 8192, 32
 SERVE_CP_FREQ, SERVE_FAIL_AT = 16, 20
 SERVE_TINY = False               # full-size configurations (CPU rehearsal: True)
@@ -1615,7 +1713,19 @@ TRACE_STEPS = 4                  # decode steps in each model's trace
 # the kernels each model's path must launch
 SERVE_KERNELS = {"h2o-danube-1.8b": ("flash_attention",),
                  "zamba2-2.7b": ("flash_attention", "ssd_scan"),
-                 "falcon-mamba-7b": ("s6_scan",)}
+                 "falcon-mamba-7b": ("s6_scan",),
+                 MOE_ARCH: ("flash_attention",)}
+
+
+def register_moe_config() -> None:
+    """Register :data:`MOE_ARCH` (and its TINY twin at the same depth, for
+    a CPU rehearsal) with the port's registry, so ``launch.serve.run``
+    resolves it by name."""
+    from repro_torch.configs import deepseek_v3_671b as ds
+    from repro_torch.configs import register_config
+
+    cut = dict(arch_id=MOE_ARCH, n_layers=2, first_dense_layers=1)
+    register_config(MOE_ARCH, ds.CONFIG.replace(**cut), ds.TINY.replace(**cut))
 
 
 def _tree_bytes(tree) -> int:
@@ -1759,6 +1869,7 @@ def serve_one(arch: str, scratch: Path) -> dict:
     from repro_torch.launch import serve
     from repro_torch.models import model as M
 
+    t_start = time.perf_counter()
     dev = torch.device(DEVICE)
     cfg = get_config(arch, tiny=SERVE_TINY)
     on_card = dev.type == "cuda"
@@ -1770,11 +1881,14 @@ def serve_one(arch: str, scratch: Path) -> dict:
         torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated() if on_card else None
     torch_sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = M.init_params(torch.Generator(device=dev).manual_seed(SEED),
                            cfg, dev)
     torch_sync()
     init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() if on_card else None
     cache_bytes = _tree_bytes(M.init_cache(
         cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, device="meta"))
     sc = serve.ServeConfig(arch=arch, tiny=SERVE_TINY, batch=SERVE_BATCH,
@@ -1830,8 +1944,17 @@ def serve_one(arch: str, scratch: Path) -> dict:
     for k in SERVE_KERNELS[arch]:
         require(launches[k] > 0, f"{arch}: {k} never launched on serve")
     # bf16 attention: prefill calls on the tensor cores, decode steps
-    # split over the keys, the scalar route never
-    if "flash_attention" in SERVE_KERNELS[arch]:
+    # split over the keys, the scalar route never; MLA's absorbed decode
+    # attends in latent space with plain einsums (as the reference), so
+    # there every attention call is a prefill's, at dqk 192 / dv 128
+    if "flash_attention" not in SERVE_KERNELS[arch]:
+        pass
+    elif cfg.attn_type == "mla" and cfg.mla_absorb:
+        require(routes["scalar"] == 0 and routes["split_decode"] == 0
+                and routes["tc_prefill"] == launches["flash_attention"]
+                == cfg.n_layers,
+                f"{arch}: attention routes on serve {routes}")
+    else:
         require(routes["scalar"] == 0 and routes["tc_prefill"] > 0
                 and routes["split_decode"] > 0
                 and routes["tc_prefill"] + routes["split_decode"]
@@ -1840,7 +1963,8 @@ def serve_one(arch: str, scratch: Path) -> dict:
     out = {"arch": arch, "params": sum(
         t.numel() for t in torch.utils._pytree.tree_leaves(params)),
            "param_bytes": _tree_bytes(params),
-           "init_s": init_s, "prefill_s": clean["prefill_s"],
+           "init_s": init_s, "init_peak_device_bytes": init_peak,
+           "prefill_s": clean["prefill_s"],
            "decode_s_per_token": clean["decode_s"] / SERVE_GEN,
            "cache_bytes": cache_bytes, "peak_device_bytes": peak,
            "resident_device_bytes_before": resident,
@@ -1858,7 +1982,8 @@ def serve_one(arch: str, scratch: Path) -> dict:
            "first_tokens": clean["tokens"][0, :8].tolist(),
            "launches": launches, "attention_routes": routes,
            "scan_routes": scan_routes,
-           "resume_launches": resume_launches}
+           "resume_launches": resume_launches,
+           "card": card_line() if on_card else None}
     del clean, resumed
     if on_card:
         out["decode_trace"] = decode_trace(cfg, params, dev,
@@ -1869,6 +1994,7 @@ def serve_one(arch: str, scratch: Path) -> dict:
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_start
     return out
 
 
@@ -1876,6 +2002,7 @@ def phase_serve(results: dict, scratch: Path) -> dict:
     from repro_torch.core import metrics
 
     metrics.install()
+    register_moe_config()
     _reset_counts()
     models = [serve_one(arch, scratch) for arch in SERVE_ARCHS]
     launches, routes = _counts(), _attn_routes()
@@ -2359,8 +2486,15 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma-separated subset (debugging); the default "
                          "runs every phase and prints the result lines")
+    ap.add_argument("--serve-archs", default=None,
+                    help="comma-separated subset of the serve phase's "
+                         "models (debugging; only with --phases)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
+    if args.serve_archs:
+        global SERVE_ARCHS
+        require(phases != ALL_PHASES, "--serve-archs needs --phases")
+        SERVE_ARCHS = tuple(args.serve_archs.split(","))
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: the port's sources are not beside this script",
               file=sys.stderr)
@@ -2423,7 +2557,9 @@ def main(argv=None) -> int:
                       "bound_by": t["bound_by"],
                       "library_ms": t.get("library_ms"),
                       "train_launches": results["train_launches"][
-                          k["name"]]})
+                          k["name"]],
+                      **({"mla_prefill": t["mla_prefill"]}
+                         if "mla_prefill" in t else {})})
     emit({"phase_wall_s": wall, "total_wall_s": sum(wall.values())})
     emit({"kernels": table})
     print(card_line(), flush=True)

@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention/kernel.py::
 // flash_attention: out = softmax(q k^T * scale + mask) v with float32
-// accumulation.  GQA: query head h reads kv head h / (Hq / Hkv).  Masks:
+// accumulation.  q and k have head dim DQK, v and out DV, each up to 256
+// (MLA: 192 and 128).  GQA: query head h reads kv head h / (Hq / Hkv).  Masks:
 // causal (kpos <= qpos), sliding window (kpos > qpos - window), kv_len
 // (kpos < kv_len), with qpos = q_offset + query row.  A row with no
 // unmasked key returns 0.  Asked for it, the scalar and tc_prefill routes
@@ -12,22 +13,28 @@
 // Bound on the H100.  Prefill (L = 8192, D = 80) is bound by operations:
 // 4 D flops per unmasked (query, key) pair against 2 bytes per element
 // read once, about 0.7 ms at the 989 TFLOP/s bf16 tensor rate for
-// zamba2's (2, 32, 8192, 80) causal call.  Decode (one query row per head)
-// is bound by reading the K/V cache once: 6-50 us at 3.35 TB/s.
+// zamba2's (2, 32, 8192, 80) causal call; 2 (DQK + DV) flops a pair in
+// general, so about 5.6 ms for MLA's (2, 128, 8192, 192 / 128).  Decode
+// (one query row per head) is bound by reading the K/V cache once: 6-50 us
+// at 3.35 TB/s.
 //
 // Three routes; the wrapper (kernels/flash_attention/kernel.py) picks one
 // from the dtype and shape, never on a failure.
 //
-// 1. tc_prefill (flash_tc): bf16, D a multiple of 16 up to 128 (a template
-//    parameter), more than 64 rows of (query, group head).  One block of
+// 1. tc_prefill (flash_tc): bf16, (DQK, DV) one of the instantiated pairs
+//    (template parameters: DQK == DV a multiple of 16 up to 128, and MLA's
+//    192 / 128), more than 64 rows of (query, group head).  One block of
 //    256 threads owns 128 q rows of one (batch, q head): two warpgroups of
 //    4 warps, 16 rows a warp.  The q tile and 64-key K/V tiles come into
 //    shared memory by 16-byte cp.async into a 2-stage ring, each stage's
 //    completion signalled on an mbarrier (cp.async.mbarrier.arrive), so the
 //    next tile streams in while the tensor cores work on this one.  Rows
 //    are padded to D + 8 elements (an odd number of 16-byte chunks: 88 for
-//    D = 80), which keeps ldmatrix free of bank conflicts without padding
-//    D itself.  S = Q K^T and O += P V run on mma.sync.m16n8k16 (bf16 in,
+//    D = 80; q and K rows by DQK, V rows by DV), which keeps ldmatrix free
+//    of bank conflicts without padding D itself.  At DQK 192 a warp holds
+//    Q's 12 k-steps of fragments (48 registers) beside its 16 x 128 fp32 O
+//    accumulator (64); ptxas reports the instance's registers and spills
+//    in the build log.  S = Q K^T and O += P V run on mma.sync.m16n8k16 (bf16 in,
 //    fp32 accumulators in registers); Q's fragments are loaded once, K's by
 //    ldmatrix, V's by ldmatrix.trans.  The online softmax stays in the
 //    accumulator registers (exp2f with scale * log2 e folded in; a row's
@@ -43,7 +50,9 @@
 //    longest first, so causal blocks balance over the 132 SMs.
 //    (mma.sync, not wgmma: see PERF.md; wgmma is queued in ROADMAP.md.)
 // 2. split_decode (flash_decode + flash_combine): Lq * group <= 64 rows,
-//    float32 or bf16, D a multiple of 16.  The group's q heads (and the Lq
+//    float32 or bf16, the same (DQK, DV) pairs as tc_prefill (the wrapper
+//    also requires the block's shared memory to fit: float32 at 192 / 128
+//    fits up to 56 rows).  The group's q heads (and the Lq
 //    query rows) are the rows of one block, so each K/V tile is read once
 //    for the whole group, and the visible keys [k_begin, k_end) are cut
 //    into splits: one block of 128 threads per (batch, kv head, split),
@@ -57,12 +66,12 @@
 //    (o, m, l) to scratch the wrapper allocates; flash_combine rescales
 //    and sums them.  A split with no visible key writes m = -inf, l = 0,
 //    o = 0 and adds nothing.
-// 3. scalar (flash_fwd): float32 prefill and D not a multiple of 16.  One
+// 3. scalar (flash_fwd): float32 prefill and every other (DQK, DV).  One
 //    block of 256 threads per (batch, q head, 64-row q tile); q, K and V
 //    tiles staged transposed in shared memory as float32, scalar fp32 FMAs
-//    (each thread 4 rows x 4 key columns, then 4 rows x 8 output dims),
-//    the row reductions in 16-lane shuffles; any D <= 128 and any 4-byte
-//    aligned strides.
+//    (each thread 4 rows x 4 key columns, then 4 rows x 8 output dims, or
+//    16 where DV > 128), the row reductions in 16-lane shuffles; any DQK,
+//    DV <= 256 and any 4-byte aligned strides.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,7 +79,7 @@
 
 namespace {
 
-constexpr int kDMax = 128;
+constexpr int kDMax = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 // lse of a row that sees no key: the reference's blocked forward starts its
@@ -83,7 +92,7 @@ struct Args {
   const void* v;
   void* o;
   float* lse;                  // (B, Hq, Lq) or null: m + log(l) per row
-  int hq, hkv, lq, lk, d;
+  int hq, hkv, lq, lk, dqk, dv;
   long long qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl;
   float scale;
   int causal, window, q_offset, kv_len;
@@ -193,23 +202,23 @@ constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 256;
 constexpr int kRows = 4;       // q rows per thread
 constexpr int kCols = kBK / 16;    // score columns per thread
-constexpr int kDims = kDMax / 16;  // output dims per thread
 
-size_t smem_bytes(int d) {
-  return sizeof(float) * (static_cast<size_t>(d) * (kBQ + 1) +
-                          static_cast<size_t>(d) * (kBK + 1) +
-                          static_cast<size_t>(kBK) * d +
+size_t smem_bytes(int dqk, int dv) {
+  return sizeof(float) * (static_cast<size_t>(dqk) * (kBQ + 1) +
+                          static_cast<size_t>(dqk) * (kBK + 1) +
+                          static_cast<size_t>(kBK) * dv +
                           static_cast<size_t>(kBK) * (kBQ + 1));
 }
 
-template <typename T>
+// kDims: output dims per thread (8 for DV <= 128, 16 for DV <= 256)
+template <typename T, int kDims>
 __global__ void __launch_bounds__(kThreads) flash_fwd(Args a) {
   extern __shared__ float smem[];
-  const int D = a.d;
-  float* qt = smem;                      // [D][kBQ + 1]
-  float* kt = qt + D * (kBQ + 1);        // [D][kBK + 1]
-  float* vs = kt + D * (kBK + 1);        // [kBK][D]
-  float* ps = vs + kBK * D;              // [kBK][kBQ + 1]
+  const int DQK = a.dqk, DV = a.dv;
+  float* qt = smem;                      // [DQK][kBQ + 1]
+  float* kt = qt + DQK * (kBQ + 1);      // [DQK][kBK + 1]
+  float* vs = kt + DQK * (kBK + 1);      // [kBK][DV]
+  float* ps = vs + kBK * DV;             // [kBK][kBQ + 1]
 
   const int tid = threadIdx.x;
   const int tr = tid >> 4, tc = tid & 15;
@@ -223,8 +232,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Args a) {
   const T* kp = static_cast<const T*>(a.k) + b * a.ksb + hk * a.ksh;
   const T* vp = static_cast<const T*>(a.v) + b * a.vsb + hk * a.vsh;
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, dd = i - r * D;
+  for (int i = tid; i < kBQ * DQK; i += kThreads) {
+    const int r = i / DQK, dd = i - r * DQK;
     qt[dd * (kBQ + 1) + r] =
         r < nq ? to_f(qp[static_cast<long long>(r) * a.qsl + dd]) : 0.f;
   }
@@ -252,16 +261,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Args a) {
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();                 // the previous tile's readers are done
     const int nk = min(kBK, a.lk - k0);
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int c = i / D, dd = i - c * D;
-      float kv = 0.f, vv = 0.f;
-      if (c < nk) {
-        const long long row = k0 + c;
-        kv = to_f(kp[row * a.ksl + dd]);
-        vv = to_f(vp[row * a.vsl + dd]);
-      }
-      kt[dd * (kBK + 1) + c] = kv;
-      vs[c * D + dd] = vv;
+    for (int i = tid; i < kBK * DQK; i += kThreads) {
+      const int c = i / DQK, dd = i - c * DQK;
+      kt[dd * (kBK + 1) + c] =
+          c < nk ? to_f(kp[static_cast<long long>(k0 + c) * a.ksl + dd]) : 0.f;
+    }
+    for (int i = tid; i < kBK * DV; i += kThreads) {
+      const int c = i / DV, dd = i - c * DV;
+      vs[c * DV + dd] =
+          c < nk ? to_f(vp[static_cast<long long>(k0 + c) * a.vsl + dd]) : 0.f;
     }
     __syncthreads();
 
@@ -271,7 +279,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Args a) {
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
         for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-      for (int dd = 0; dd < D; ++dd) {
+      for (int dd = 0; dd < DQK; ++dd) {
         float qv[kRows], kv[kCols];
 #pragma unroll
         for (int i = 0; i < kRows; ++i) qv[i] = qt[dd * (kBQ + 1) + tr * kRows + i];
@@ -334,7 +342,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Args a) {
 #pragma unroll
         for (int j = 0; j < kDims; ++j) {
           const int dd = tc + 16 * j;
-          vv[j] = dd < D ? vs[c * D + dd] : 0.f;
+          vv[j] = dd < DV ? vs[c * DV + dd] : 0.f;
         }
 #pragma unroll
         for (int i = 0; i < kRows; ++i)
@@ -346,7 +354,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Args a) {
 
   if (!active) return;
   const long long row0 = (static_cast<long long>(b) * a.hq + h) * a.lq + q0;
-  T* op = static_cast<T*>(a.o) + row0 * D;
+  T* op = static_cast<T*>(a.o) + row0 * DV;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int r = tr * kRows + i;
@@ -357,21 +365,27 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Args a) {
 #pragma unroll
     for (int j = 0; j < kDims; ++j) {
       const int dd = tc + 16 * j;
-      if (dd < D) op[static_cast<long long>(r) * D + dd] = from_f<T>(acc[i][j] * inv);
+      if (dd < DV) op[static_cast<long long>(r) * DV + dd] = from_f<T>(acc[i][j] * inv);
     }
   }
 }
 
-template <typename T>
-int launch(const Args& a, int b, cudaStream_t s) {
-  const size_t smem = smem_bytes(a.d);
+template <typename T, int kDims>
+int launch_dims(const Args& a, int b, cudaStream_t s) {
+  const size_t smem = smem_bytes(a.dqk, a.dv);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd<T, kDims>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.lq + kBQ - 1) / kBQ, a.hq, b);
-  flash_fwd<T><<<grid, kThreads, smem, s>>>(a);
+  flash_fwd<T, kDims><<<grid, kThreads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const Args& a, int b, cudaStream_t s) {
+  return a.dv <= 128 ? launch_dims<T, 8>(a, b, s)
+                     : launch_dims<T, 16>(a, b, s);
 }
 
 }  // namespace scalar
@@ -386,26 +400,30 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kStages = 2;     // K/V ring depth
 constexpr int kBarBytes = 128; // mbarriers, ahead of the tiles
 
-template <int D>
+template <int DQK, int DV>
 struct Shape {
-  static constexpr int kRow = D + 8;        // odd number of 16-byte chunks
-  static constexpr int kChunks = D / 8;     // 16-byte chunks of a row
-  static constexpr int kKSteps = D / 16;    // k-steps of Q K^T
-  static constexpr int kDTiles = D / 8;     // 8-wide output tiles of P V
+  static constexpr int kRow = DQK + 8;      // q / K rows: odd 16-byte chunks
+  static constexpr int kRowV = DV + 8;      // V rows
+  static constexpr int kChunks = DQK / 8;   // 16-byte chunks of a q / K row
+  static constexpr int kChunksV = DV / 8;
+  static constexpr int kKSteps = DQK / 16;  // k-steps of Q K^T
+  static constexpr int kVSteps = DV / 16;   // 16-wide output steps of P V
+  static constexpr int kDTiles = DV / 8;    // 8-wide output tiles of P V
   static constexpr size_t kSmem =
-      kBarBytes + sizeof(__nv_bfloat16) * kRow * (kBQ + 2 * kStages * kBK);
+      kBarBytes + sizeof(__nv_bfloat16) *
+                      (kRow * (kBQ + kStages * kBK) + kRowV * kStages * kBK);
 };
 
 using bf16 = __nv_bfloat16;
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads) flash_tc(Args a) {
-  using S = Shape<D>;
+  using S = Shape<DQK, DV>;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   bf16* qs = reinterpret_cast<bf16*>(smem + kBarBytes);  // [kBQ][kRow]
   bf16* ks = qs + kBQ * S::kRow;               // [kStages][kBK][kRow]
-  bf16* vs = ks + kStages * kBK * S::kRow;     // [kStages][kBK][kRow]
+  bf16* vs = ks + kStages * kBK * S::kRow;     // [kStages][kBK][kRowV]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int h = blockIdx.x, b = blockIdx.y;
@@ -435,14 +453,23 @@ __global__ void __launch_bounds__(kThreads) flash_tc(Args a) {
   auto load_kv = [&](int t, int st) {
     const int k0 = k_begin + t * kBK;
     const uint32_t kd = smem_u32(ks + st * kBK * S::kRow);
-    const uint32_t vd = smem_u32(vs + st * kBK * S::kRow);
+    const uint32_t vd = smem_u32(vs + st * kBK * S::kRowV);
     for (int i = tid; i < kBK * S::kChunks; i += kThreads) {
       const int r = i / S::kChunks, c = i - r * S::kChunks;
       const bool ok = k0 + r < k_lim;
       const long long row = ok ? k0 + r : 0;
       const uint32_t off = (r * S::kRow + c * 8) * sizeof(bf16);
       cp_async16(kd + off, kp + row * a.ksl + c * 8, ok);
-      cp_async16(vd + off, vp + row * a.vsl + c * 8, ok);
+      if constexpr (DQK == DV) cp_async16(vd + off, vp + row * a.vsl + c * 8, ok);
+    }
+    if constexpr (DQK != DV) {
+      for (int i = tid; i < kBK * S::kChunksV; i += kThreads) {
+        const int r = i / S::kChunksV, c = i - r * S::kChunksV;
+        const bool ok = k0 + r < k_lim;
+        const long long row = ok ? k0 + r : 0;
+        cp_async16(vd + (r * S::kRowV + c * 8) * sizeof(bf16),
+                   vp + row * a.vsl + c * 8, ok);
+      }
     }
     cp_async_arrive(smem_u32(&bars[st]));
   };
@@ -488,7 +515,7 @@ __global__ void __launch_bounds__(kThreads) flash_tc(Args a) {
       skip = true;                                  // before every window
     if (!skip) {
       const bf16* kt = ks + st * kBK * S::kRow;
-      const bf16* vt = vs + st * kBK * S::kRow;
+      const bf16* vt = vs + st * kBK * S::kRowV;
       float s[8][4];
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
@@ -569,11 +596,11 @@ __global__ void __launch_bounds__(kThreads) flash_tc(Args a) {
           pa[i] = split_bf16(s[j][c], s[j][c + 1], pr[i]);
         }
 #pragma unroll
-        for (int d2 = 0; d2 < S::kKSteps; ++d2) {
+        for (int d2 = 0; d2 < S::kVSteps; ++d2) {
           uint32_t bv[4];
           ldsm_x4_t(smem_u32(vt + (kt2 * 16 + ((lane >> 3) & 1) * 8 +
                                    (lane & 7)) *
-                                      S::kRow +
+                                      S::kRowV +
                              d2 * 16 + (lane >> 4) * 8),
                     bv);
           mma_bf16(o[2 * d2], pa, bv[0], bv[1]);
@@ -595,7 +622,7 @@ __global__ void __launch_bounds__(kThreads) flash_tc(Args a) {
   const float i0 = l0 > 0.f ? 1.f / l0 : 0.f;   // a row with no key: 0
   const float i1 = l1 > 0.f ? 1.f / l1 : 0.f;
   const long long row0 = (static_cast<long long>(b) * a.hq + h) * a.lq + q0;
-  bf16* op = static_cast<bf16*>(a.o) + row0 * D;
+  bf16* op = static_cast<bf16*>(a.o) + row0 * DV;
   const int r0 = wr0 + g, r1 = r0 + 8;
   if (a.lse != nullptr && tig == 0) {   // m is base 2: lse = m ln 2 + ln l
     if (r0 < nq) a.lse[row0 + r0] = l0 > 0.f ? m0 * kLn2 + logf(l0) : kEmptyLse;
@@ -605,23 +632,23 @@ __global__ void __launch_bounds__(kThreads) flash_tc(Args a) {
   for (int j = 0; j < S::kDTiles; ++j) {
     const int col = j * 8 + tig * 2;
     if (r0 < nq)
-      *reinterpret_cast<__nv_bfloat162*>(op + r0 * D + col) =
+      *reinterpret_cast<__nv_bfloat162*>(op + r0 * DV + col) =
           __floats2bfloat162_rn(o[j][0] * i0, o[j][1] * i0);
     if (r1 < nq)
-      *reinterpret_cast<__nv_bfloat162*>(op + r1 * D + col) =
+      *reinterpret_cast<__nv_bfloat162*>(op + r1 * DV + col) =
           __floats2bfloat162_rn(o[j][2] * i1, o[j][3] * i1);
   }
 }
 
-template <int D>
+template <int DQK, int DV = DQK>
 int launch(const Args& a, int b, cudaStream_t s) {
-  const size_t smem = Shape<D>::kSmem;
+  const size_t smem = Shape<DQK, DV>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_tc<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(a.hq, b, (a.lq + kBQ - 1) / kBQ);
-  flash_tc<D><<<grid, kThreads, smem, s>>>(a);
+  flash_tc<DQK, DV><<<grid, kThreads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -641,7 +668,7 @@ struct DecArgs {
   const void* q;
   const void* k;
   const void* v;
-  float* po;                   // (B, Hkv, splits, rows, D) unnormalized o
+  float* po;                   // (B, Hkv, splits, rows, DV) unnormalized o
   float* pml;                  // (B, Hkv, splits, rows, 2) m (base 2), l
   int hq, hkv, lq, group, rows;
   long long qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl;
@@ -649,21 +676,24 @@ struct DecArgs {
   int causal, window, q_offset, k_lim, k_begin, k_end, split_len, splits;
 };
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 struct Shape {
   static constexpr int kVec = 16 / sizeof(T);       // elements a 16-byte copy
-  static constexpr int kChunks = D / kVec;          // even: D % 16 == 0
-  static constexpr int kRow = D + kVec;             // odd number of chunks
-  static constexpr int kPairs = D / 2;
+  static constexpr int kChunks = DQK / kVec;        // even: DQK % 16 == 0
+  static constexpr int kChunksV = DV / kVec;
+  static constexpr int kRow = DQK + kVec;           // odd number of chunks
+  static constexpr int kRowV = DV + kVec;
+  static constexpr int kPairs = DV / 2;
   static constexpr int kMaxItems =                  // (row group, pair)
       (kMaxRows / kRG * kPairs + kThreads - 1) / kThreads;
 };
 
-// rows padded to whole groups of kRG
-size_t smem_bytes(size_t elem, int d, int rows) {
+// rows padded to whole groups of kRG (kernel.py's decode_smem_bytes is the
+// same formula: the wrapper routes a shape that does not fit to scalar)
+size_t smem_bytes(size_t elem, int dqk, int dv, int rows) {
   const size_t padded = (rows + kRG - 1) / kRG * kRG;
-  return kBarBytes + elem * 2 * kStages * kKT * (d + 16 / elem) +
-         sizeof(float) * (padded * d + padded * kKT + padded * 3 +
+  return kBarBytes + elem * kStages * kKT * (dqk + dv + 2 * 16 / elem) +
+         sizeof(float) * (padded * dqk + padded * kKT + padded * 3 +
                           kThreads * 2 * kRG);
 }
 
@@ -693,17 +723,17 @@ __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads) flash_decode(DecArgs a) {
-  using S = Shape<T, D>;
+  using S = Shape<T, DQK, DV>;
   constexpr int kVec = S::kVec, kHalf = S::kChunks / 2;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   T* ks = reinterpret_cast<T*>(smem + kBarBytes);   // [kStages][kKT][kRow]
-  T* vs = ks + kStages * kKT * S::kRow;
+  T* vs = ks + kStages * kKT * S::kRow;             // [kStages][kKT][kRowV]
   const int R = a.rows, n_rg = (R + kRG - 1) / kRG, RP = n_rg * kRG;
-  float* qs = reinterpret_cast<float*>(vs + kStages * kKT * S::kRow);
-  float* ps = qs + RP * D;             // [n_rg][kKT][kRG] scores, then p
+  float* qs = reinterpret_cast<float*>(vs + kStages * kKT * S::kRowV);
+  float* ps = qs + RP * DQK;           // [n_rg][kKT][kRG] scores, then p
   float* ml = ps + RP * kKT;           // [RP][3] m, l, alpha of the tile
   float* red = ml + RP * 3;            // key-group partials
 
@@ -718,8 +748,8 @@ __global__ void __launch_bounds__(kThreads) flash_decode(DecArgs a) {
   if (tid < kStages) mbar_init(smem_u32(&bars[tid]), kThreads);
   // row r = i * group + j: q head hk * group + j at query row i; rows
   // past R (padding of the last group) are zeros with p = 0 throughout
-  for (int idx = tid; idx < RP * D; idx += kThreads) {
-    const int r = idx / D, dd = idx - r * D;
+  for (int idx = tid; idx < RP * DQK; idx += kThreads) {
+    const int r = idx / DQK, dd = idx - r * DQK;
     float x = 0.f;
     if (r < R) {
       const int i = r / a.group, j = r - i * a.group;
@@ -740,21 +770,31 @@ __global__ void __launch_bounds__(kThreads) flash_decode(DecArgs a) {
   auto load_kv = [&](int t, int st) {
     const int k0 = s_begin + t * kKT;
     const uint32_t kd = smem_u32(ks + st * kKT * S::kRow);
-    const uint32_t vd = smem_u32(vs + st * kKT * S::kRow);
+    const uint32_t vd = smem_u32(vs + st * kKT * S::kRowV);
     for (int i = tid; i < kKT * S::kChunks; i += kThreads) {
       const int r = i / S::kChunks, c = i - r * S::kChunks;
       const bool ok = k0 + r < s_end;
       const long long row = ok ? k0 + r : 0;
       const uint32_t off = (r * S::kRow + c * kVec) * sizeof(T);
       cp_async16(kd + off, kp + row * a.ksl + c * kVec, ok);
-      cp_async16(vd + off, vp + row * a.vsl + c * kVec, ok);
+      if constexpr (DQK == DV)
+        cp_async16(vd + off, vp + row * a.vsl + c * kVec, ok);
+    }
+    if constexpr (DQK != DV) {
+      for (int i = tid; i < kKT * S::kChunksV; i += kThreads) {
+        const int r = i / S::kChunksV, c = i - r * S::kChunksV;
+        const bool ok = k0 + r < s_end;
+        const long long row = ok ? k0 + r : 0;
+        cp_async16(vd + (r * S::kRowV + c * kVec) * sizeof(T),
+                   vp + row * a.vsl + c * kVec, ok);
+      }
     }
     cp_async_arrive(smem_u32(&bars[st]));
   };
   for (int t = 0; t < kStages && t < n_kt; ++t) load_kv(t, t);
 
   // scores: item (row group, key); with a single row group two lanes share
-  // an item, each taking half the chunks of D
+  // an item, each taking half the chunks of DQK
   const int n_si = n_rg * kKT;
   const int tpi = n_si < kThreads ? 2 : 1;
   const int half = tpi == 2 ? (tid & 1) : 0;
@@ -777,7 +817,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode(DecArgs a) {
     const int k0 = s_begin + t * kKT;
     const int nk = min(kKT, s_end - k0);
     const T* kt = ks + st * kKT * S::kRow;
-    const T* vt = vs + st * kKT * S::kRow;
+    const T* vt = vs + st * kKT * S::kRowV;
     // 1. base-2 scores: each K chunk is read once for kRG rows
     for (int it = tid / tpi; it < n_si; it += kThreads / tpi) {
       const int rg = it / kKT, c = it - rg * kKT;
@@ -792,7 +832,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode(DecArgs a) {
 #pragma unroll
           for (int rr = 0; rr < kRG; ++rr) {
             if (rr >= nr) break;
-            const float* qr = qs + (rg * kRG + rr) * D + ch * kVec;
+            const float* qr = qs + (rg * kRG + rr) * DQK + ch * kVec;
 #pragma unroll
             for (int e = 0; e < kVec; e += 4) {
               const float4 qv = *reinterpret_cast<const float4*>(qr + e);
@@ -867,7 +907,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode(DecArgs a) {
           if (R - rg * kRG == 1) {                  // one row: zamba2's MHA
             for (int c = kg; c < nk; c += nkg) {
               const float p = pg[c * kRG];
-              const float2 vv = load_pair(vt + c * S::kRow + 2 * dp);
+              const float2 vv = load_pair(vt + c * S::kRowV + 2 * dp);
               acc[i][0].x = fmaf(p, vv.x, acc[i][0].x);
               acc[i][0].y = fmaf(p, vv.y, acc[i][0].y);
             }
@@ -875,7 +915,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode(DecArgs a) {
             for (int c = kg; c < nk; c += nkg) {
               const float4 p =
                   *reinterpret_cast<const float4*>(pg + c * kRG);
-              const float2 vv = load_pair(vt + c * S::kRow + 2 * dp);
+              const float2 vv = load_pair(vt + c * S::kRowV + 2 * dp);
               acc[i][0].x = fmaf(p.x, vv.x, acc[i][0].x);
               acc[i][0].y = fmaf(p.x, vv.y, acc[i][0].y);
               acc[i][1].x = fmaf(p.y, vv.x, acc[i][1].x);
@@ -926,7 +966,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode(DecArgs a) {
         for (int rr = 0; rr < kRG; ++rr) {
           const int r = rg * kRG + rr;
           if (r < R)
-            *reinterpret_cast<float2*>(a.po + (base + r) * D + 2 * dp) =
+            *reinterpret_cast<float2*>(a.po + (base + r) * DV + 2 * dp) =
                 acc[i][rr];
         }
       }
@@ -968,17 +1008,18 @@ __global__ void __launch_bounds__(128) flash_combine(DecArgs a, int d,
   op[dd] = from_f<T>(l > 0.f ? acc / l : 0.f);
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV = DQK>
 int launch(const DecArgs& a, int b, void* out, cudaStream_t s) {
-  const size_t smem = smem_bytes(sizeof(T), D, a.rows);
+  static_assert(DV <= 128, "flash_combine has a thread per output dim");
+  const size_t smem = smem_bytes(sizeof(T), DQK, DV, a.rows);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_decode<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_decode<T, DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_decode<T, D><<<dim3(a.splits, a.hkv, b), kThreads, smem, s>>>(a);
+  flash_decode<T, DQK, DV><<<dim3(a.splits, a.hkv, b), kThreads, smem, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_combine<T><<<b * a.hkv * a.rows, 128, 0, s>>>(a, D, out);
+  flash_combine<T><<<b * a.hkv * a.rows, 128, 0, s>>>(a, DV, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -986,26 +1027,29 @@ int launch(const DecArgs& a, int b, void* out, cudaStream_t s) {
 
 }  // namespace
 
-// q (B, Hq, Lq, D), k/v (B, Hkv, Lk, D) with the given element strides of
-// their batch, head and row axes (the last axis contiguous); out
-// (B, Hq, Lq, D) contiguous.  window <= 0 means no window.  lse (B, Hq, Lq)
-// float32 contiguous, or null (scalar and tc_prefill routes): each row's
-// log-sum-exp of its scaled scores, -1e30 for a row that sees no key.
-// Each entry point returns the cudaError_t of its launches (0 on success).
+// q (B, Hq, Lq, DQK), k (B, Hkv, Lk, DQK), v (B, Hkv, Lk, DV) with the given
+// element strides of their batch, head and row axes (the last axis
+// contiguous); out (B, Hq, Lq, DV) contiguous.  window <= 0 means no window.
+// lse (B, Hq, Lq) float32 contiguous, or null (scalar and tc_prefill
+// routes): each row's log-sum-exp of its scaled scores, -1e30 for a row
+// that sees no key.  Each entry point returns the cudaError_t of its
+// launches (0 on success).
 
-// scalar route: dtype 0 = float32, 1 = bfloat16 (all four tensors)
+// scalar route: any dqk, dv <= 256; dtype 0 = float32, 1 = bfloat16 (all
+// four tensors)
 extern "C" int craft_flash_attention(
     const void* q, const void* k, const void* v, void* out, void* lse,
     int b, int hq,
-    int hkv, int lq, int lk, int d, long long qsb, long long qsh,
+    int hkv, int lq, int lk, int dqk, int dv, long long qsb, long long qsh,
     long long qsl, long long ksb, long long ksh, long long ksl,
     long long vsb, long long vsh, long long vsl, float scale, int causal,
     int window, int q_offset, int kv_len, int dtype, void* stream) {
-  if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv || d <= 0 || d > kDMax ||
-      lq < 0 || lk < 0 || b > 65535 || hq > 65535)
+  if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv || dqk <= 0 ||
+      dqk > kDMax || dv <= 0 || dv > kDMax || lq < 0 || lk < 0 ||
+      b > 65535 || hq > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (lq == 0) return 0;
-  Args a{q, k, v, out, static_cast<float*>(lse), hq, hkv, lq, lk, d,
+  Args a{q, k, v, out, static_cast<float*>(lse), hq, hkv, lq, lk, dqk, dv,
          qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, scale, causal, window,
          q_offset, kv_len};
   auto s = static_cast<cudaStream_t>(stream);
@@ -1014,12 +1058,12 @@ extern "C" int craft_flash_attention(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// tc_prefill route: bfloat16, D a multiple of 16 up to 128; q, k, v bases
-// and strides 16-byte aligned
+// tc_prefill route: bfloat16, dqk == dv a multiple of 16 up to 128, or
+// (dqk, dv) = (192, 128); q, k, v bases and strides 16-byte aligned
 extern "C" int craft_flash_prefill_tc(
     const void* q, const void* k, const void* v, void* out, void* lse,
     int b, int hq,
-    int hkv, int lq, int lk, int d, long long qsb, long long qsh,
+    int hkv, int lq, int lk, int dqk, int dv, long long qsb, long long qsh,
     long long qsl, long long ksb, long long ksh, long long ksl,
     long long vsb, long long vsh, long long vsl, float scale, int causal,
     int window, int q_offset, int kv_len, void* stream) {
@@ -1028,11 +1072,13 @@ extern "C" int craft_flash_prefill_tc(
       (lq + tc::kBQ - 1) / tc::kBQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (lq == 0) return 0;
-  Args a{q, k, v, out, static_cast<float*>(lse), hq, hkv, lq, lk, d,
+  Args a{q, k, v, out, static_cast<float*>(lse), hq, hkv, lq, lk, dqk, dv,
          qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, scale, causal, window,
          q_offset, kv_len};
   auto s = static_cast<cudaStream_t>(stream);
-  switch (d) {
+  if (dqk == 192 && dv == 128) return tc::launch<192, 128>(a, b, s);
+  if (dqk != dv) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dqk) {
     case 16: return tc::launch<16>(a, b, s);
     case 32: return tc::launch<32>(a, b, s);
     case 48: return tc::launch<48>(a, b, s);
@@ -1046,9 +1092,11 @@ extern "C" int craft_flash_prefill_tc(
 }
 
 template <typename T>
-int decode_d(const dec::DecArgs& a, int b, int d, void* out,
+int decode_d(const dec::DecArgs& a, int b, int dqk, int dv, void* out,
              cudaStream_t s) {
-  switch (d) {
+  if (dqk == 192 && dv == 128) return dec::launch<T, 192, 128>(a, b, out, s);
+  if (dqk != dv) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dqk) {
     case 16: return dec::launch<T, 16>(a, b, out, s);
     case 32: return dec::launch<T, 32>(a, b, out, s);
     case 48: return dec::launch<T, 48>(a, b, out, s);
@@ -1061,14 +1109,15 @@ int decode_d(const dec::DecArgs& a, int b, int d, void* out,
   }
 }
 
-// split_decode route: Lq * (Hq / Hkv) <= 64 rows, D a multiple of 16 up to
-// 128, dtype 0 = float32, 1 = bfloat16; the visible keys [k_begin, k_end)
-// (kv_len already folded into k_lim = min(Lk, kv_len)) in `splits` splits
-// of split_len keys; part_o (B, Hkv, splits, rows, D) and part_ml
-// (B, Hkv, splits, rows, 2) float32 scratch
+// split_decode route: Lq * (Hq / Hkv) <= 64 rows, the (dqk, dv) pairs of
+// tc_prefill, dtype 0 = float32, 1 = bfloat16; the visible keys
+// [k_begin, k_end) (kv_len already folded into k_lim = min(Lk, kv_len)) in
+// `splits` splits of split_len keys; part_o (B, Hkv, splits, rows, DV) and
+// part_ml (B, Hkv, splits, rows, 2) float32 scratch
 extern "C" int craft_flash_decode(
     const void* q, const void* k, const void* v, void* out, void* part_o,
-    void* part_ml, int b, int hq, int hkv, int lq, int d, long long qsb,
+    void* part_ml, int b, int hq, int hkv, int lq, int dqk, int dv,
+    long long qsb,
     long long qsh, long long qsl, long long ksb, long long ksh,
     long long ksl, long long vsb, long long vsh, long long vsl, float scale,
     int causal, int window, int q_offset, int k_lim, int k_begin, int k_end,
@@ -1085,7 +1134,7 @@ extern "C" int craft_flash_decode(
                  scale * kLog2e, causal, window, q_offset, k_lim, k_begin,
                  k_end, split_len, splits};
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return decode_d<float>(a, b, d, out, s);
-  if (dtype == 1) return decode_d<__nv_bfloat16>(a, b, d, out, s);
+  if (dtype == 0) return decode_d<float>(a, b, dqk, dv, out, s);
+  if (dtype == 1) return decode_d<__nv_bfloat16>(a, b, dqk, dv, out, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

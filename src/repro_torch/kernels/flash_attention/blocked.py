@@ -36,8 +36,9 @@ def attention_bwd(q, k, v, out, lse, g, *, causal: bool = True,
                   window: Optional[int] = None,
                   sm_scale: Optional[float] = None, q_offset: int = 0,
                   kv_len: Optional[int] = None, block: int = 1024):
-    """(dq, dk, dv) in the dtypes of q, k, v.  q (B, Hq, Lq, D), k/v
-    (B, Hkv, Lk, D), out and g (B, Hq, Lq, D), lse (B, Hq, Lq) float32."""
+    """(dq, dk, dv) in the dtypes of q, k, v.  q (B, Hq, Lq, Dqk), k
+    (B, Hkv, Lk, Dqk), v (B, Hkv, Lk, Dv), out and g (B, Hq, Lq, Dv), lse
+    (B, Hq, Lq) float32."""
     b, hq, lq, dk_ = q.shape
     _, hkv, lk, dv_ = v.shape
     group = hq // hkv

@@ -4,7 +4,8 @@
 CUDA tensor goes to the hand-written kernel (:mod:`kernel`) and nothing
 else: a failed build or launch raises, and no library attention is called.
 A CPU tensor goes to the plain version (:mod:`ref`).  The layout is the
-reference's: q (B, Hq, Lq, D), k/v (B, Hkv, Lk, D).  ``kv_len`` and
+reference's: q (B, Hq, Lq, Dqk), k (B, Hkv, Lk, Dqk), v (B, Hkv, Lk, Dv)
+(MLA gives v a head dim of its own; the output takes v's).  ``kv_len`` and
 ``q_offset`` are host integers (decode passes the cache position, kept on
 the host, so no step waits on the card to learn it).
 

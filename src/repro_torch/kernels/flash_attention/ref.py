@@ -101,9 +101,9 @@ def _attention(q, k, v, causal, window, sm_scale, q_offset, kv_len,
 
 
 def attention_split_ref(
-    q: torch.Tensor,                   # (B, Hq, Lq, D)
-    k: torch.Tensor,                   # (B, Hkv, Lk, D)
-    v: torch.Tensor,                   # (B, Hkv, Lk, D)
+    q: torch.Tensor,                   # (B, Hq, Lq, Dqk)
+    k: torch.Tensor,                   # (B, Hkv, Lk, Dqk)
+    v: torch.Tensor,                   # (B, Hkv, Lk, Dv)
     *,
     k_begin: int,
     k_end: int,
@@ -122,13 +122,14 @@ def attention_split_ref(
     -inf, so a split with no visible key gives l = o = 0).  The combine:
     ``M = max m_s``, ``w_s = 2^(m_s - M)``, ``out = sum w_s o_s / sum w_s
     l_s``, and 0 where no split saw a key."""
-    b, hq, lq, d = q.shape
+    b, hq, lq, dqk = q.shape
     _, hkv, lk, _ = k.shape
+    dv = v.shape[-1]
     group = hq // hkv
     if sm_scale is None:
-        sm_scale = d ** -0.5
+        sm_scale = dqk ** -0.5
     k_lim = lk if kv_len is None else min(lk, kv_len)
-    qf = q.float().reshape(b, hkv, group, lq, d)
+    qf = q.float().reshape(b, hkv, group, lq, dqk)
     qpos = q_offset + torch.arange(lq, device=q.device)[:, None]
     ms, ls, os_ = [], [], []
     for s0 in range(k_begin, k_end, split_len):
@@ -149,11 +150,11 @@ def attention_split_ref(
         ls.append(p.sum(dim=-1))
         os_.append(torch.einsum("bhgqk,bhkd->bhgqd", p, vf))
     if not ms:
-        return torch.zeros_like(q)
+        return q.new_zeros((b, hq, lq, dv))
     m = torch.stack(ms)
     m_max = m.amax(dim=0)
     w = torch.exp2(m - torch.where(m_max == float("-inf"), 0.0, m_max))
     den = (w * torch.stack(ls)).sum(dim=0)[..., None]
     num = (w[..., None] * torch.stack(os_)).sum(dim=0)
     out = torch.where(den > 0, num / torch.where(den > 0, den, 1.0), 0.0)
-    return out.reshape(b, hq, lq, d).to(q.dtype)
+    return out.reshape(b, hq, lq, dv).to(q.dtype)

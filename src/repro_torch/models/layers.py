@@ -51,13 +51,26 @@ class Init:
 
 
 # ---------------------------------------------------------------- helpers
+# elements above which dense_init draws a tensor slab by slab (a deepseek
+# expert stack, 256 x 7168 x 2048, would take 15 GB in float32 at once)
+_SLAB = 1 << 30
+
+
 def dense_init(ini: Init, shape, in_dim: int, dtype) -> torch.Tensor:
     """Truncated normal on [-2, 2] scaled by 1/sqrt(in_dim), drawn in
     float32 on the device and rounded to ``dtype`` (one tensor at a time,
-    so a 7B tree never exists in float32)."""
+    so a 7B tree never exists in float32; a tensor of more than 2^30
+    elements one slab of its leading axis at a time)."""
     shape = tuple(shape)
     if ini.meta:
         return torch.empty(shape, dtype=dtype, device=ini.device)
+    if math.prod(shape) > _SLAB and shape[0] > 1:
+        out = torch.empty(shape, dtype=dtype, device=ini.device)
+        rows = max(1, shape[0] * _SLAB // (4 * math.prod(shape)))
+        for i in range(0, shape[0], rows):
+            out[i:i + rows] = dense_init(
+                ini, (min(rows, shape[0] - i), *shape[1:]), in_dim, dtype)
+        return out
     u = torch.empty(shape, dtype=torch.float32, device=ini.device)
     u.uniform_(2.0 * _LO - 1.0, 2.0 * _HI - 1.0, generator=ini.gen)
     x = u.erfinv_().mul_(_SQRT2).clamp_(-2.0, 2.0)
@@ -67,8 +80,10 @@ def dense_init(ini: Init, shape, in_dim: int, dtype) -> torch.Tensor:
 def stack_init(init_fn, ini: Init, n: int):
     """``n`` layers of ``init_fn(ini)`` stacked on a leading axis.  The
     stacked leaves are allocated once and filled layer by layer, so the
-    peak is the stack plus one layer."""
+    peak is the stack plus one layer (one layer is its own stack)."""
     first = init_fn(ini)
+    if n == 1:
+        return pytree.tree_map(lambda x: x.unsqueeze(0), first)
     out = pytree.tree_map(
         lambda x: torch.empty((n, *x.shape), dtype=x.dtype, device=x.device),
         first)

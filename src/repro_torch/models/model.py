@@ -1,18 +1,22 @@
 """Full language-model assembly: embed → blocks → norm → logits (the
-reference's ``repro/models/model.py:56-412``, serving path).
+reference's ``repro/models/model.py``).
 
-Families of this slice
+Families of the port
   * dense  — transformer blocks (GQA, optional sliding window),
+  * moe    — ``first_dense_layers`` dense blocks, then MoE blocks (GQA or
+    MLA attention), and deepseek's multi-token-prediction head
+    (``cfg.mtp``: :func:`mtp_hidden`, used by the training loss),
   * ssm    — mamba1/mamba2 blocks (attention-free),
   * hybrid — zamba2: groups of ``shared_attn_every`` mamba2 blocks with ONE
     weight-shared transformer block applied between groups.
-``moe`` and the modality frontends (``audio``, ``vlm``) come with later
-slices of the port and raise here.
+The modality frontends (``audio``, ``vlm``) come with a later slice of the
+port and raise here.
 
 Parameters keep the reference's tree and layer-stacked layout: ``blocks``
-leaves are ``(n_layers, ...)``; ``shared_block`` and ``lm_head`` are as
-there.  The reference's ``lax.scan`` over layers is a Python loop over the
-stacked leaves; the mesh constraints have no counterpart here.
+(and the moe family's ``dense_blocks``) leaves are ``(n_layers, ...)``;
+``shared_block``, ``lm_head`` and ``mtp`` are as there.  The reference's
+``lax.scan`` over layers is a Python loop over the stacked leaves; the
+mesh constraints have no counterpart here.
 
 Training is ``forward_hidden`` without a cache.  Where autograd records,
 ``cfg.remat`` (the default) wraps every block in
@@ -43,20 +47,15 @@ from repro_torch.models.layers import (
     unembed_apply,
 )
 
-SERVED_FAMILIES = ("dense", "ssm", "hybrid")
+SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _served(cfg: ModelConfig) -> None:
-    if cfg.family not in SERVED_FAMILIES:
-        later = {"moe": "MoE", "audio": "frontends", "vlm": "frontends"}
+    if cfg.family not in SERVED_FAMILIES or cfg.frontend:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.arch_id}) is not ported yet: it "
-            f"comes with the {later.get(cfg.family, cfg.family)} slice of "
-            "the port (ROADMAP.md)")
-    if cfg.frontend or cfg.mtp:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: modality frontends and MTP heads come with a "
-            "later slice of the port (ROADMAP.md)")
+            f"family {cfg.family!r} ({cfg.arch_id}) is not ported yet: "
+            "modality frontends come with the frontends slice of the port "
+            "(ROADMAP.md)")
 
 
 def _layer_slice(tree, i: int):
@@ -89,6 +88,15 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
     if cfg.family == "dense":
         params["blocks"] = stack_init(
             lambda i: blk.tblock_init(i, cfg), ini, cfg.n_layers)
+    elif cfg.family == "moe":
+        if cfg.first_dense_layers:
+            params["dense_blocks"] = stack_init(
+                lambda i: blk.tblock_init(
+                    i, cfg, d_ff=cfg.dense_d_ff or cfg.d_ff),
+                ini, cfg.first_dense_layers)
+        params["blocks"] = stack_init(
+            lambda i: blk.tblock_init(i, cfg, use_moe=True), ini,
+            cfg.n_layers - cfg.first_dense_layers)
     else:
         params["blocks"] = stack_init(
             lambda i: blk.sblock_init(i, cfg), ini, cfg.n_layers)
@@ -97,6 +105,13 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(
             ini, (cfg.d_model, cfg.vocab), cfg.d_model, cfg.dtype)
+    if cfg.mtp:
+        params["mtp"] = {
+            "proj": dense_init(ini, (2 * cfg.d_model, cfg.d_model),
+                               2 * cfg.d_model, cfg.dtype),
+            "ln": ini.full((cfg.d_model,), 1.0, cfg.dtype),
+            "block": blk.tblock_init(ini, cfg, use_moe=cfg.family == "moe"),
+        }
     return params
 
 
@@ -119,6 +134,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     if cfg.family == "dense":
         proto = blk.tblock_cache_init(cfg, batch, max_len, dtype, "meta")
         return {"layers": _stack_cache(proto, cfg.n_layers, device)}
+    if cfg.family == "moe":
+        proto = blk.tblock_cache_init(cfg, batch, max_len, dtype, "meta")
+        out = {"layers": _stack_cache(
+            proto, cfg.n_layers - cfg.first_dense_layers, device)}
+        if cfg.first_dense_layers:
+            out["dense_layers"] = _stack_cache(
+                proto, cfg.first_dense_layers, device)
+        return out
     sproto = blk.sblock_cache_init(cfg, batch, dtype, "meta")
     out = {"layers": _stack_cache(sproto, cfg.n_layers, device)}
     if cfg.family == "hybrid":
@@ -178,7 +201,8 @@ def forward_hidden(
 
     The unembed projection is not applied: serving unembeds only the
     positions it needs.  ``cache`` is updated in place and returned.  The
-    aux loss is MoE's, 0.0 for the families of this slice.
+    aux loss is MoE's (the sum over MoE blocks; 0.0 for the other
+    families).
     """
     _served(cfg)
     if embeds is not None:
@@ -195,8 +219,20 @@ def forward_hidden(
     def s_apply(p, h, c):
         return blk.sblock_apply(p, h, cfg, c)
 
+    def moe_apply(p, h, c):
+        return blk.tblock_apply(p, h, cfg, positions, c, use_moe=True)
+
     if cfg.family == "hybrid":
         x, aux = _hybrid_forward(params, x, cfg, positions, cache)
+    elif cfg.family == "moe":
+        aux = 0.0
+        if cfg.first_dense_layers:
+            caches = cache["dense_layers"] if cache is not None else None
+            x, aux = _run_stack(t_apply, params["dense_blocks"], x, cfg,
+                                caches)
+        caches = cache["layers"] if cache is not None else None
+        x, a = _run_stack(moe_apply, params["blocks"], x, cfg, caches)
+        aux = aux + a
     else:
         caches = cache["layers"] if cache is not None else None
         fn = t_apply if cfg.family == "dense" else s_apply
@@ -246,3 +282,29 @@ def _hybrid_forward(params, x, cfg, positions, cache):
             x, _, a = t_fn(params["shared_block"], x, c)
             aux = aux + a
     return x, aux
+
+
+# ==========================================================================
+# MTP head (deepseek multi-token prediction)
+# ==========================================================================
+def mtp_hidden(params, cfg: ModelConfig, hidden: torch.Tensor,
+               next_tokens: torch.Tensor, positions) -> torch.Tensor:
+    """Predict token t+2 from (hidden_t, embed(token_{t+1})) — one MTP depth.
+
+    Returns the MTP head's hidden states (B, L, D); the caller unembeds
+    (chunked, like the main loss).  The block's aux loss is dropped, as
+    the reference drops it.
+    """
+    mtp = params["mtp"]
+    nxt = embed_apply(params["embed"], next_tokens)
+    h = torch.cat([rms_norm(hidden, mtp["ln"], cfg.norm_eps), nxt], dim=-1)
+    h = h @ mtp["proj"]
+    h, _, _ = blk.tblock_apply(mtp["block"], h, cfg, positions,
+                               use_moe=cfg.family == "moe")
+    return h
+
+
+def mtp_logits(params, cfg: ModelConfig, hidden: torch.Tensor,
+               next_tokens: torch.Tensor, positions) -> torch.Tensor:
+    h = mtp_hidden(params, cfg, hidden, next_tokens, positions)
+    return unembed(params, cfg, h)

@@ -1,5 +1,5 @@
-"""Step builders: training (grad-accum, clip) and serving — the reference's
-``repro/train/steps.py``.
+"""Step builders: training (grad-accum, clip, MoE aux, MTP) and serving —
+the reference's ``repro/train/steps.py``.
 
 ``make_train_step(cfg, opt_cfg)`` returns
 
@@ -15,8 +15,9 @@ never require a gradient.  The loss never holds a (B, L, V) logits tensor:
 ``torch.utils.checkpoint``, as the reference runs it under
 ``jax.checkpoint``.  Microbatch accumulation (``microbatches > 1``) sums
 each microbatch's gradients in float32 (or ``grad_dtype``), then divides
-by the count.  MoE aux and MTP heads come with later slices of the port
-(the model raises for them).  The forward runs under the trace span
+by the count.  The loss adds ``moe_aux_weight`` times the MoE aux loss
+and, where the model has an MTP head, ``mtp_weight`` times its cross
+entropy, as the reference does.  The forward runs under the trace span
 ``craft::forward`` (the backward's own spans are in the kernels' ops and
 the optimizer's in ``optim.adamw``).
 
@@ -38,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import model as M
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.layers import embed_apply
 from repro_torch.optim.adamw import OptimConfig, adamw_update
 
 IGNORE = -100
@@ -140,9 +142,27 @@ def _loss_fn(params, cfg: ModelConfig, scfg: TrainStepConfig, batch):
     hidden, _, aux = M.forward_hidden(
         params, cfg, tokens=tokens, embeds=batch.get("embeds"))
     aux = torch.as_tensor(aux, dtype=torch.float32, device=hidden.device)
-    loss = chunked_cross_entropy(
-        hidden, labels, lambda h: M.unembed(params, cfg, h), scfg.loss_chunk)
+
+    def unembed_fn(h):
+        return M.unembed(params, cfg, h)
+
+    loss = chunked_cross_entropy(hidden, labels, unembed_fn, scfg.loss_chunk)
     total = loss + scfg.moe_aux_weight * aux
+    if cfg.mtp:
+        # predict token t+2 from (embed_t, embed(token_{t+1})): one MTP
+        # depth over the token embeddings in place of the backbone's final
+        # hidden, as the reference's (``_embed_hidden`` there)
+        b, l = tokens.shape
+        positions = torch.arange(l, device=hidden.device)
+        next_tokens = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+        mtp_h = M.mtp_hidden(params, cfg,
+                             embed_apply(params["embed"], tokens),
+                             next_tokens, positions)
+        mtp_labels = torch.cat([labels[:, 1:], torch.full(
+            (b, 1), IGNORE, dtype=labels.dtype, device=labels.device)],
+            dim=1)
+        total = total + scfg.mtp_weight * chunked_cross_entropy(
+            mtp_h, mtp_labels, unembed_fn, scfg.loss_chunk)
     return total, {"loss": loss, "aux": aux}
 
 

@@ -224,6 +224,53 @@ def test_flash_attention_matches_plain(cuda, case, dtype):
             assert splits > 1
 
 
+MLA_CASES = [
+    # (b, hq, hkv, lq, lk, dqk, dv, causal, q_offset, kv_len, route): v's
+    # head dim apart from q's and k's (MLA: 128 + 64 and 128); route
+    # "prefill": tc_prefill in bfloat16, scalar in float32; "rows": 64 rows,
+    # split_decode in bfloat16, scalar in float32 (its block would not fit)
+    (1, 4, 4, 200, 200, 192, 128, True, 0, None, "prefill"),
+    (2, 2, 2, 333, 517, 192, 128, True, 184, None, "prefill"),     # ragged
+    (1, 2, 2, 140, 140, 192, 128, True, 0, 4, "prefill"),          # kv_len
+    (1, 8, 8, 1, 300, 192, 128, True, 299, 300, "split_decode"),
+    (2, 128, 128, 1, 8224, 192, 128, True, 8223, 8224, "split_decode"),
+    (1, 2, 2, 64, 64, 192, 128, True, 0, 0, "rows"),               # no key
+    (1, 64, 1, 1, 300, 192, 128, True, 299, 300, "rows"),
+    (1, 2, 2, 100, 100, 24, 16, True, 0, None, "scalar"),          # TINY
+    (1, 2, 2, 150, 150, 256, 256, True, 0, None, "scalar"),        # D_MAX
+    (1, 2, 1, 70, 90, 192, 256, True, 20, None, "scalar"),         # dv 256
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MLA_CASES)
+def test_flash_attention_two_head_dims_match_plain(cuda, case, dtype):
+    """dv != dqk on every route: the output takes v's head dim, the
+    default scale is dqk ** -0.5, each call's route is the rule's."""
+    b, hq, hkv, lq, lk, dqk, dv, causal, q_offset, kv_len, route = case
+    bf16 = dtype == torch.bfloat16
+    route = {"prefill": "tc_prefill" if bf16 else "scalar",
+             "rows": "split_decode" if bf16 else "scalar"}.get(route, route)
+    g = torch.Generator(device=cuda).manual_seed(lq * 7 + lk + dqk)
+    q = torch.randn((b, lq, hq, dqk), generator=g, device=cuda,
+                    dtype=dtype).transpose(1, 2)          # strided q
+    k = torch.randn((b, hkv, lk, dqk), generator=g, device=cuda, dtype=dtype)
+    v = torch.randn((b, hkv, lk, dv), generator=g, device=cuda, dtype=dtype)
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    routes = dict(flash_attention_cuda.routes)
+    out = flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert {r: n - routes[r] for r, n in flash_attention_cuda.routes.items()
+            } == {r: int(r == route) for r in routes}
+    assert route == fa_kernel.choose_route(dtype, lq, hq // hkv, dqk, dv)
+    assert out.shape == (b, hq, lq, dv) and out.dtype == dtype
+    ref = attention_ref(q, k, v, **kw)
+    tol = 2e-2 if bf16 else 2e-5
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    if kv_len == 0:
+        assert not bool(out.any())
+
+
 def test_flash_attention_copies_a_misaligned_q(cuda):
     """A q whose rows do not start on 16 bytes is copied, not sent to
     another route."""
@@ -399,7 +446,8 @@ def test_chunked_scan_takes_unaligned_views(cuda):
 
 
 @pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "zamba2-2.7b",
-                                  "falcon-mamba-7b"])
+                                  "falcon-mamba-7b", "deepseek-v3-671b",
+                                  "kimi-k2-1t-a32b"])
 def test_tiny_serve_on_the_card_equals_cpu(cuda, arch):
     """float32 TINY serve: the card's greedy tokens equal the CPU's."""
     name = f"{arch}-tiny-f32-card"
@@ -418,7 +466,8 @@ def test_tiny_serve_on_the_card_equals_cpu(cuda, arch):
     assert card["logits_finite"] and cpu["logits_finite"]
     np.testing.assert_array_equal(card["tokens"], cpu["tokens"])
     used = {"h2o-danube-1.8b": (0,), "zamba2-2.7b": (0, 1),
-            "falcon-mamba-7b": (2,)}[arch]
+            "falcon-mamba-7b": (2,), "deepseek-v3-671b": (0,),
+            "kimi-k2-1t-a32b": (0,)}[arch]
     for i in used:
         assert after[i] > before[i]
 
@@ -500,6 +549,8 @@ LSE_CASES = [
     (2, 2, 2, 140, 140, 64, True, 8, 0, 4),             # rows with no key
     (1, 2, 2, 100, 100, 64, False, None, 0, 0),         # kv_len 0
     (1, 2, 1, 40, 40, 64, True, None, 0, None),         # 40 rows: scalar
+    (1, 4, 4, 160, 160, (192, 128), True, None, 0, None),  # MLA dims
+    (1, 2, 2, 140, 140, (192, 128), True, 8, 0, 4),     # rows with no key
 ]
 
 
@@ -510,10 +561,11 @@ def test_flash_lse_matches_plain(cuda, case, dtype):
     and scalar routes against the plain version's; -1e30 exactly where a
     row sees no key."""
     b, hq, hkv, lq, lk, d, causal, window, q_offset, kv_len = case
+    d, dv = d if isinstance(d, tuple) else (d, d)
     g = torch.Generator(device=cuda).manual_seed(lq + lk + d)
     q = torch.randn((b, hq, lq, d), generator=g, device=cuda, dtype=dtype)
     k = torch.randn((b, hkv, lk, d), generator=g, device=cuda, dtype=dtype)
-    v = torch.randn((b, hkv, lk, d), generator=g, device=cuda, dtype=dtype)
+    v = torch.randn((b, hkv, lk, dv), generator=g, device=cuda, dtype=dtype)
     kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
     routes = dict(flash_attention_cuda.routes)
     out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
@@ -533,11 +585,12 @@ def test_flash_lse_matches_plain(cuda, case, dtype):
 
 
 GRAD_CASES = [
-    # (b, hq, hkv, l, d, window)
+    # (b, hq, hkv, l, d, window); d a pair: (dqk, dv)
     (1, 2, 2, 160, 64, None),
     (2, 8, 2, 130, 80, None),
     (1, 4, 4, 200, 80, 32),
     (1, 8, 2, 96, 64, 40),
+    (1, 4, 4, 160, (192, 128), None),                   # MLA
 ]
 
 
@@ -548,10 +601,12 @@ def test_attention_fn_grads_match_plain(cuda, case, dtype):
     the plain version's autograd in float32 on the same values: output and
     gradients within 1e-4 (float32) or 2e-2 (bf16) of each one's max."""
     b, hq, hkv, l, d, window = case
+    d, dv = d if isinstance(d, tuple) else (d, d)
     g = torch.Generator(device=cuda).manual_seed(l * d)
-    q, k, v = (torch.randn((b, h, l, d), generator=g, device=cuda,
-                           dtype=dtype) for h in (hq, hkv, hkv))
-    dout = torch.randn((b, hq, l, d), generator=g, device=cuda, dtype=dtype)
+    q, k, v = (torch.randn((b, h, l, w), generator=g, device=cuda,
+                           dtype=dtype) for h, w in ((hq, d), (hkv, d),
+                                                     (hkv, dv)))
+    dout = torch.randn((b, hq, l, dv), generator=g, device=cuda, dtype=dtype)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     launches = flash_attention_cuda.launches
     out = fa_ops.attention(*leaves, causal=True, window=window)

@@ -241,10 +241,42 @@ def test_split_decode_masked_splits_and_rows_add_nothing():
     (torch.bfloat16, 128, 2, 40, "scalar"),          # D not a multiple of 16
     (torch.bfloat16, 1, 2, 40, "scalar"),
     (torch.bfloat16, 128, 2, 128, "tc_prefill"),
-    (torch.bfloat16, 128, 2, 144, "scalar"),         # past D_MAX
+    (torch.bfloat16, 128, 2, 144, "scalar"),         # no instance of 144
 ])
 def test_choose_route(dtype, lq, group, d, route):
     assert fa_kernel.choose_route(dtype, lq, group, d) == route
+
+
+@pytest.mark.parametrize("dtype,lq,group,dqk,dv,route", [
+    (torch.bfloat16, 8192, 1, 192, 128, "tc_prefill"),   # MLA prefill
+    (torch.bfloat16, 1, 1, 192, 128, "split_decode"),    # MLA expanded decode
+    (torch.float32, 1, 1, 192, 128, "split_decode"),
+    (torch.float32, 8192, 1, 192, 128, "scalar"),        # float32 prefill
+    (torch.float32, 1, 56, 192, 128, "split_decode"),    # 56 rows fit
+    (torch.float32, 1, 64, 192, 128, "scalar"),          # 64 do not
+    (torch.bfloat16, 1, 64, 192, 128, "split_decode"),
+    (torch.bfloat16, 8192, 1, 128, 192, "scalar"),       # no instance
+    (torch.bfloat16, 8192, 1, 24, 16, "scalar"),         # TINY deepseek
+    (torch.bfloat16, 8192, 1, 256, 256, "scalar"),
+])
+def test_choose_route_two_head_dims(dtype, lq, group, dqk, dv, route):
+    """(dqk, dv) pairs without a tensor-core instance, and float32 decode
+    blocks whose shared memory would pass the card's, take scalar."""
+    assert fa_kernel.choose_route(dtype, lq, group, dqk, dv) == route
+    rows = lq * group
+    if rows <= fa_kernel.DECODE_ROWS and (dqk, dv) in fa_kernel.TC_DIMS:
+        fits = fa_kernel.decode_smem_bytes(dtype, dqk, dv, rows) <= \
+            fa_kernel.SMEM_MAX
+        assert fits == (route == "split_decode")
+
+
+def test_every_same_dim_decode_block_fits():
+    """The served models' (dqk == dv) decode blocks all fit in shared
+    memory at 64 rows, so adding dv moved none of them off split_decode."""
+    for d in range(16, 129, 16):
+        for dtype in (torch.float32, torch.bfloat16):
+            assert fa_kernel.decode_smem_bytes(dtype, d, d, 64) <= \
+                fa_kernel.SMEM_MAX
 
 
 @pytest.mark.parametrize("args,want", [
@@ -503,6 +535,59 @@ def test_chunk_passes_keep_the_state_over_zero_dt():
     assert torch.equal(h, h0)
 
 
+# ------------------------------------------- MLA: dqk != dv (192 / 128)
+MLA_CASES = [
+    # (b, hq, hkv, lq, lk, dqk, dv, causal, q_offset, kv_len, dtype)
+    (1, 4, 4, 128, 128, 192, 128, True, 0, None, "float32"),   # prefill
+    (2, 2, 2, 100, 100, 192, 128, True, 0, None, "bfloat16"),  # ragged
+    (1, 4, 4, 1, 140, 192, 128, True, 139, 140, "float32"),    # decode step
+    (1, 4, 2, 64, 200, 24, 16, True, 100, None, "float32"),    # TINY, GQA
+    (1, 2, 2, 64, 64, 192, 128, True, 0, 0, "float32"),        # no key
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _mla_case(i: int):
+    b, hq, hkv, lq, lk, dqk, dv, causal, q_offset, kv_len, dtype = \
+        MLA_CASES[i]
+    rng = np.random.default_rng(700 + i)
+    q, tq = _both(rng.standard_normal((b, hq, lq, dqk)), dtype)
+    k, tk = _both(rng.standard_normal((b, hkv, lk, dqk)), dtype)
+    v, tv = _both(rng.standard_normal((b, hkv, lk, dv)), dtype)
+    kw = dict(causal=causal, window=None, q_offset=q_offset, kv_len=kv_len)
+    return (q, k, v), (tq, tk, tv), kw, (2e-2 if dtype == "bfloat16"
+                                         else 2e-5)
+
+
+@pytest.mark.parametrize("i", range(len(MLA_CASES)))
+def test_mla_attention_ref_matches_reference_and_pallas(i):
+    """dv != dqk: the output takes v's head dim and the default scale is
+    dqk ** -0.5, as the reference's oracle and its Pallas kernel (in
+    interpret mode) compute."""
+    (q, k, v), (tq, tk, tv), kw, tol = _mla_case(i)
+    got = attention_ref(tq, tk, tv, **kw)
+    assert got.dtype == tq.dtype
+    assert got.shape == (*tq.shape[:3], tv.shape[3])
+    for want in (jax_attention(q, k, v, **kw), _pallas(q, k, v, **kw)):
+        np.testing.assert_allclose(_np32(got), _np32(want), rtol=tol,
+                                   atol=tol)
+    if kw["kv_len"] == 0:
+        assert not bool(got.any())
+
+
+@pytest.mark.parametrize("i", [0, 2, 3])
+def test_mla_split_decode_arithmetic_matches_reference(i):
+    """The split-KV decode's arithmetic with dv != dqk, splits of 32 keys."""
+    (q, k, v), (tq, tk, tv), kw, tol = _mla_case(i)
+    k_begin, k_end = fa_kernel.key_range(tq.shape[2], tk.shape[2], **kw)
+    got = attention_split_ref(tq, tk, tv, k_begin=k_begin, k_end=k_end,
+                              split_len=32, **kw)
+    assert got.shape == (*tq.shape[:3], tv.shape[3])
+    np.testing.assert_allclose(_np32(got), _np32(jax_attention(q, k, v,
+                                                               **kw)),
+                               rtol=tol, atol=tol)
+
+
 # ------------------------------------------------- the training path:
 # the attention Function (lse, blocked backward) and the scan Function
 # against the reference's VJPs, float32
@@ -523,15 +608,18 @@ ATTN_GRAD_CASES = [
     (1, 2, 2, 30, 30, 8, False, 8, 0, None),         # window, no causal
     (1, 2, 1, 24, 70, 16, True, 10, 46, 60),         # window, offset, kv_len
     (1, 2, 2, 16, 16, 8, True, None, 0, 0),          # no key for any row
+    (1, 4, 2, 33, 33, 24, True, None, 0, None, 16),  # MLA: dv 16 != 24
 ]
 
 
 def _attn_inputs(case, seed):
+    """(q, k, v, g); a case's optional 11th entry is v's head dim."""
     b, hq, hkv, lq, lk, d = case[:6]
+    dv = case[10] if len(case) > 10 else d
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(s).astype(np.float32)
-            for s in ((b, hq, lq, d), (b, hkv, lk, d), (b, hkv, lk, d),
-                      (b, hq, lq, d))]
+            for s in ((b, hq, lq, d), (b, hkv, lk, d), (b, hkv, lk, dv),
+                      (b, hq, lq, dv))]
 
 
 @pytest.mark.parametrize("i", range(len(ATTN_GRAD_CASES)))
@@ -541,7 +629,7 @@ def test_attention_fn_matches_reference_vjp(i):
     ``blocked_attention`` with 16-key blocks), float32 within 1e-5; a row
     that sees no key has lse -1e30 and adds no gradient."""
     case = ATTN_GRAD_CASES[i]
-    _, _, _, _, lk, d, causal, window, q_offset, kv_len = case
+    _, _, _, _, lk, d, causal, window, q_offset, kv_len = case[:10]
     q, k, v, g = _attn_inputs(case, i)
     scale = d ** -0.5
     kvl = lk if kv_len is None else kv_len
@@ -572,7 +660,7 @@ def test_attention_fn_matches_reference_vjp(i):
 def test_blocked_backward_does_not_depend_on_the_block(i, block):
     """The key block of the backward changes the sums' grouping only."""
     case = ATTN_GRAD_CASES[i]
-    _, _, _, _, _, _, causal, window, q_offset, kv_len = case
+    _, _, _, _, _, _, causal, window, q_offset, kv_len = case[:10]
     q, k, v, g = (torch.from_numpy(x) for x in _attn_inputs(case, i))
     kw = dict(causal=causal, window=window, q_offset=q_offset,
               kv_len=kv_len)

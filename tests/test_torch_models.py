@@ -1,17 +1,22 @@
 """The port's LM serving path against the reference package, on the CPU.
 
 For h2o-danube-1.8b (dense GQA, sliding window), zamba2-2.7b (hybrid
-mamba2 + shared attention) and falcon-mamba-7b (mamba1), at their TINY
-sizes, the reference's ``init_params`` weights are carried into the port
-(numpy → ``convert.params_from_numpy``) and the same seeded tokens go
-through ``forward``, ``make_prefill`` and ``make_decode_step`` of both
-packages.  The prompt (40) is longer than TINY danube's window (32), so
-the prefill masks by window and decode writes the rolling slots.
+mamba2 + shared attention), falcon-mamba-7b (mamba1), deepseek-v3-671b
+(MoE with MLA attention and an MTP head) and kimi-k2-1t-a32b (MoE with
+GQA), at their TINY sizes, the reference's ``init_params`` weights are
+carried into the port (numpy → ``convert.params_from_numpy``) and the same
+seeded tokens go through ``forward``, ``make_prefill`` and
+``make_decode_step`` of both packages.  The prompt (40) is longer than
+TINY danube's window (32), so the prefill masks by window and decode
+writes the rolling slots.
 
 Tolerances: float32 2e-4 on logits and cache values (the same math summed
 in another order); bfloat16 0.15, the reference's own bound for its models
 (``tests/test_models.py``), since the two frameworks round bfloat16 at
-other places.
+other places.  deepseek in bfloat16 is the exception, held block by block
+in ``tests/test_torch_moe.py``: a one-ulp difference after its first
+(dense) block flips a top-k choice with a margin of 2.3e-5 two MoE layers
+on, and one token's experts then differ, end to end.
 """
 import functools
 
@@ -32,8 +37,12 @@ from repro_torch.core.checkpointables import _flatten
 from repro_torch.models import model as M
 from repro_torch.train import steps as S
 
-ARCHS = ["h2o-danube-1.8b", "zamba2-2.7b", "falcon-mamba-7b"]
+ARCHS = ["h2o-danube-1.8b", "zamba2-2.7b", "falcon-mamba-7b",
+         "deepseek-v3-671b", "kimi-k2-1t-a32b"]
 DTYPES = ["float32", "bfloat16"]
+# (arch, dtype) of the end-to-end comparisons: see the module docstring
+CASES = [(a, d) for a in ARCHS for d in DTYPES
+         if (a, d) != ("deepseek-v3-671b", "bfloat16")]
 TOL = {"float32": 2e-4, "bfloat16": 0.15}
 B, PROMPT, GEN = 2, 40, 4
 
@@ -117,8 +126,7 @@ def test_params_from_numpy_refuses_a_mismatch():
         convert.params_from_numpy(tree, cfg, "cpu")
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,dtype", CASES)
 def test_forward_matches_reference(arch, dtype):
     rcfg, cfg, rparams, params, tokens = _setup(arch, dtype)
     want, _, _ = RM.forward(rparams, rcfg, tokens=jnp.asarray(tokens))
@@ -129,8 +137,7 @@ def test_forward_matches_reference(arch, dtype):
                                atol=TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,dtype", CASES)
 def test_prefill_and_decode_logits_match_reference(arch, dtype):
     steps, _, _ = _serve_both(arch, dtype)
     for i, (want, got) in enumerate(steps):
@@ -139,8 +146,7 @@ def test_prefill_and_decode_logits_match_reference(arch, dtype):
                                    atol=TOL[dtype], err_msg=f"step {i}")
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,dtype", CASES)
 def test_decode_cache_matches_reference(arch, dtype):
     """Same structure, leaf order, dtypes and values (pos exactly)."""
     _, rcache, cache = _serve_both(arch, dtype)
@@ -168,26 +174,13 @@ def test_rolling_window_cache_holds_the_newest_positions():
     assert bool((k.abs().sum(-1) > 0).all())
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "kimi-k2-1t-a32b",
-                                  "musicgen-medium", "llava-next-34b"])
+@pytest.mark.parametrize("arch", ["musicgen-medium", "llava-next-34b"])
 def test_later_slices_raise(arch):
     cfg = get_config(arch, tiny=True)
     with pytest.raises(NotImplementedError, match="slice"):
         M.init_params(None, cfg, "meta")
     with pytest.raises(NotImplementedError, match="slice"):
         M.init_cache(cfg, 1, 8, device="meta")
-
-
-def test_mla_and_moe_blocks_raise():
-    from repro_torch.models import attention, blocks
-    from repro_torch.models.layers import Init
-
-    cfg = get_config("deepseek-v3-671b", tiny=True)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        attention.gqa_init(Init(None, "meta"), cfg)
-    dense = get_config("h2o-danube-1.8b", tiny=True)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        blocks.tblock_init(Init(None, "meta"), dense, use_moe=True)
 
 
 def test_init_params_is_seeded():

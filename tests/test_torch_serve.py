@@ -7,7 +7,8 @@ reference's ``init_params``, carried over with
 from ``np.random.default_rng(seed)``).  Greedy tokens must be identical.
 A decode checkpoint (cache, generated tokens, position) written by either
 package when a run fails mid-generation resumes in the other with the same
-``resumed_at`` and the same tokens.
+``resumed_at`` and the same tokens.  deepseek's MLA decodes on both of the
+reference's routes (``mla_absorb`` True, the default, and False).
 """
 import dataclasses
 import functools
@@ -32,32 +33,36 @@ from repro_torch.configs import get_config, register_config
 from repro_torch.core import CraftEnv
 from repro_torch.launch import serve
 
-ARCHS = ["h2o-danube-1.8b", "zamba2-2.7b", "falcon-mamba-7b"]
+ARCHS = ["h2o-danube-1.8b", "zamba2-2.7b", "falcon-mamba-7b",
+         "deepseek-v3-671b", "kimi-k2-1t-a32b"]
 GEN, CP_FREQ, FAIL_AT = 8, 4, 6
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def _name(arch: str) -> str:
-    return f"{arch}-tiny-f32"
+def _name(arch: str, absorb: bool = True) -> str:
+    return f"{arch}-tiny-f32" + ("" if absorb else "-expanded")
 
 
 @functools.lru_cache(maxsize=None)
-def _weights(arch: str):
-    """Register the float32 TINY config in both packages; return the
-    reference's weights and the same weights in the port."""
-    tiny = ref_config(arch, tiny=True).replace(param_dtype="float32")
-    ref_register(_name(arch), tiny, tiny)
-    port_tiny = get_config(arch, tiny=True).replace(param_dtype="float32")
-    register_config(_name(arch), port_tiny, port_tiny)
+def _weights(arch: str, absorb: bool = True):
+    """Register the float32 TINY config in both packages (``absorb``: its
+    ``mla_absorb``); return the reference's weights and the same weights in
+    the port."""
+    tiny = ref_config(arch, tiny=True).replace(param_dtype="float32",
+                                               mla_absorb=absorb)
+    ref_register(_name(arch, absorb), tiny, tiny)
+    port_tiny = get_config(arch, tiny=True).replace(param_dtype="float32",
+                                                    mla_absorb=absorb)
+    register_config(_name(arch, absorb), port_tiny, port_tiny)
     rparams = RM.init_params(jax.random.PRNGKey(0), tiny)
     params = convert.params_from_numpy(
         jax.tree_util.tree_map(np.asarray, rparams), port_tiny, "cpu")
     return rparams, params
 
 
-def _configs(arch: str, **kw):
-    common = dict(arch=_name(arch), batch=2, prompt_len=40, gen_tokens=GEN,
-                  **kw)
+def _configs(arch: str, absorb: bool = True, **kw):
+    common = dict(arch=_name(arch, absorb), batch=2, prompt_len=40,
+                  gen_tokens=GEN, **kw)
     return ref_serve.ServeConfig(**common), serve.ServeConfig(
         **common, device="cpu")
 
@@ -69,9 +74,9 @@ def _envs(path: Path):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_tokens(arch: str) -> np.ndarray:
-    rparams, _ = _weights(arch)
-    ref_sc, _ = _configs(arch)
+def _reference_tokens(arch: str, absorb: bool = True) -> np.ndarray:
+    rparams, _ = _weights(arch, absorb)
+    ref_sc, _ = _configs(arch, absorb)
     return ref_serve.run(ref_sc, params=rparams)["tokens"]
 
 
@@ -83,6 +88,19 @@ def test_greedy_tokens_match_reference(arch):
     assert out["resumed_at"] == 0 and out["logits_finite"]
     assert out["tokens"].shape == (2, GEN)
     np.testing.assert_array_equal(out["tokens"], _reference_tokens(arch))
+
+
+def test_mla_expanded_decode_tokens_match_reference():
+    """deepseek with ``mla_absorb=False``: the re-expanded cache through the
+    attention op (the reference's ``attention_ref``) gives the reference's
+    greedy tokens, which are the absorbed route's tokens too."""
+    _, params = _weights("deepseek-v3-671b", False)
+    _, sc = _configs("deepseek-v3-671b", False)
+    out = serve.run(sc, params=params)
+    want = _reference_tokens("deepseek-v3-671b", False)
+    np.testing.assert_array_equal(out["tokens"], want)
+    np.testing.assert_array_equal(want,
+                                  _reference_tokens("deepseek-v3-671b"))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

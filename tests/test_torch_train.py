@@ -4,8 +4,9 @@ The same seeded numpy inputs go through both packages: the synthetic
 data pipeline (bit for bit), the learning-rate schedule, the int8 moment
 codec and AdamW (32-bit and 8-bit moments, with and without the float32
 master copy), the cross entropies, and the loss and gradients of the TINY
-dense (h2o-danube-1.8b), ssm (falcon-mamba-7b) and hybrid (zamba2-2.7b)
-models on the reference's ``init_params`` weights, through
+dense (h2o-danube-1.8b), ssm (falcon-mamba-7b), hybrid (zamba2-2.7b) and
+moe (deepseek-v3-671b: MLA, MoE aux and the MTP head; kimi-k2-1t-a32b:
+GQA and MoE aux) models on the reference's ``init_params`` weights, through
 ``jax.value_and_grad(repro.train.steps._loss_fn)`` and the port's
 autograd (its kernels' plain versions forward, the same backward code the
 card runs).  The reference's train step runs without a mesh, as
@@ -38,7 +39,8 @@ from repro_torch.models import model as M
 from repro_torch.optim import adamw as A
 from repro_torch.train import steps as S
 
-ARCHS = ["h2o-danube-1.8b", "zamba2-2.7b", "falcon-mamba-7b"]
+ARCHS = ["h2o-danube-1.8b", "zamba2-2.7b", "falcon-mamba-7b",
+         "deepseek-v3-671b", "kimi-k2-1t-a32b"]
 
 
 def _np(x) -> np.ndarray:
@@ -337,10 +339,9 @@ def test_bf16_train_steps_lower_the_loss(arch):
     assert losses[-1] < losses[0]
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "kimi-k2-1t-a32b",
-                                  "llava-next-34b", "musicgen-medium"])
+@pytest.mark.parametrize("arch", ["llava-next-34b", "musicgen-medium"])
 def test_later_slices_raise(arch):
-    """MoE, MTP and the modality frontends come with later slices."""
+    """The modality frontends come with a later slice."""
     cfg = get_config(arch, tiny=True)
     with pytest.raises(NotImplementedError):
         M.init_params(None, cfg, "meta")
