@@ -69,7 +69,20 @@ Phases, each printing one JSON line:
    (m=2) and one RAM replica: ranks 1 and 2 die mid-loop and lose their node
    trees; the final state must equal (torch.equal) the same loop run
    without failures.
-7. serve — ``repro_torch.launch.serve.run`` on h2o-danube-1.8b,
+7. lanczos — the paper's showcase (§5.1, Table 4, Fig. 8):
+   ``repro_torch.apps.lanczos`` on an 8192 x 8192 honeycomb lattice with
+   on-site disorder 0.3 (n = 134,217,728; 512 MiB a float32 vector), 200
+   iterations, a version every 40, deterministic algorithms on.  Table 4's
+   modes (no checkpoint; synchronous pfs with CRAFT_DEVICE_SNAPSHOT=1;
+   CRAFT_WRITE_ASYNC=1; the node tier, LOCAL, in the build scratch) must
+   give equal alphas and betas; a run crashing at 60 and its
+   rerun must restart at 40 and give the same alphas and betas; two
+   SimWorld ranks in an AFT zone (one spare node, NON-SHRINKING, async
+   writes), rank 0 fail-stopped by ``SimWorld.kill`` at 60, must resume
+   from 40 and end on the same numbers; the clean lattice's smallest Ritz
+   value must lie within [-3 - 1e-5, -3 + 1e-3] and the disordered one's
+   within [-3.3 - 1e-5, -3]; checksum and snapshot launched.
+8. serve — ``repro_torch.launch.serve.run`` on h2o-danube-1.8b,
    zamba2-2.7b, falcon-mamba-7b and deepseek-v3-671b at full width (their
    CONFIGs; deepseek cut to depth 2, one dense and one MoE block beside
    its MTP head's parameters, registered as ``deepseek-v3-671b-d2``) in
@@ -86,7 +99,7 @@ Phases, each printing one JSON line:
    chunked route and of the decode on the sequential one.  Then
    torch.profiler traces of a few decode steps (the device's busy time and
    idle share) and of one prefill (device seconds by kernel family).
-8. train — in a child process (``--phases train-child``, with
+9. train — in a child process (``--phases train-child``, with
    CUBLAS_WORKSPACE_CONFIG=:4096:8 and deterministic algorithms): zamba2-2.7b
    at full width through ``repro_torch.launch.train.run``, bf16, B 2 x L
    4096, seeded random weights, AdamW with 32-bit moments, per-block remat:
@@ -105,7 +118,7 @@ Phases, each printing one JSON line:
 
 Each phase's line carries its wall seconds (``wall_s``), and a line before
 the kernel table sums them.
-Each path phase (main, redundancy, aft, serve, train) sets the kernels'
+Each path phase (main, redundancy, aft, lanczos, serve, train) sets the kernels'
 launch counts to 0 before it runs and reads them after.  Then the kernel table (JSON), the
 card's name and power limit, and the last line ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without
@@ -1701,6 +1714,212 @@ def phase_aft(results: dict, scratch: Path) -> dict:
 
 
 # ---------------------------------------------------------------- phase 7
+# The paper's showcase (§5.1, Table 4, Fig. 8): the Lanczos eigensolver of
+# repro_torch.apps.lanczos on an 8192 x 8192 honeycomb lattice, n =
+# 134,217,728 unknowns, 512 MiB a float32 vector (about 1 GiB of Lanczos
+# vectors a version and rank), the reference's --full iteration plan
+# (benchmarks/lanczos_aft.py): 200 iterations, a version every 40, a
+# failure at 60, the midpoint of an interval.
+LANCZOS_NX = 8192
+LANCZOS_ITERS, LANCZOS_CP_FREQ, LANCZOS_FAIL_AT = 200, 40, 60
+LANCZOS_DISORDER = 0.3
+CLEAN_EDGE = (-3.0 - 1e-5, -3.0 + 1e-3)      # the clean spectrum's edge -3|t|
+DISORDERED_EDGE = (-3.3 - 1e-5, -3.0)        # within [-3|t| - W, -3|t|]
+
+
+def _lanczos_mode_env(mode: str, root: Path) -> dict:
+    """Table 4's modes as benchmarks/cr_overhead.py defines them; the
+    synchronous one also takes the device snapshot path, and the node
+    tier lives in the build scratch (the checkout's own disk), not in
+    /dev/shm as there."""
+    env = {"CRAFT_CP_PATH": str(root / "pfs"), "CRAFT_USE_SCR": "0"}
+    if mode == "none":
+        env["CRAFT_ENABLE"] = "0"
+    elif mode == "sync":
+        env["CRAFT_DEVICE_SNAPSHOT"] = "1"
+    elif mode == "async":
+        env["CRAFT_WRITE_ASYNC"] = "1"
+    elif mode == "node":
+        env.update({"CRAFT_USE_SCR": "1",
+                    "CRAFT_NODE_CP_PATH": str(root / "node"),
+                    "CRAFT_NODE_REDUNDANCY": "LOCAL",
+                    "CRAFT_PFS_EVERY": "1000000"})      # node tier only
+    return env
+
+
+def phase_lanczos(results: dict, scratch: Path) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.apps import lanczos as L
+    from repro_torch.core import CraftEnv
+
+    dev = torch.device(DEVICE)
+    cfg = L.GrapheneConfig(nx=LANCZOS_NX, ny=LANCZOS_NX,
+                           disorder=LANCZOS_DISORDER, seed=SEED)
+    vec_bytes = cfg.n * 4
+    n_versions = LANCZOS_ITERS // LANCZOS_CP_FREQ
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    rss = RssPeak()
+    _reset_counts()
+    t_phase = time.perf_counter()
+    # the uninterrupted run once more without deterministic algorithms:
+    # what they cost an iteration, and that the sums were deterministic
+    free = L.run_lanczos(cfg, n_iter=LANCZOS_ITERS, device=dev)
+    if dev.type == "cuda":
+        # bit-exact resume, as the train child: deterministic algorithms.
+        # The Lanczos step is elementwise passes, rolls and full sums, no
+        # cuBLAS, so CUBLAS_WORKSPACE_CONFIG (read when cuBLAS starts,
+        # which an earlier phase did) is left to the later phases.
+        torch.use_deterministic_algorithms(True)
+    try:
+        modes, launches_of = {}, {}
+        runs = {}
+        for mode in ("none", "sync", "async", "node"):
+            root = scratch / mode
+            envmap = _lanczos_mode_env(mode, root)
+            c0 = _counts()
+            res = L.run_lanczos(
+                cfg, n_iter=LANCZOS_ITERS,
+                cp_freq=0 if mode == "none" else LANCZOS_CP_FREQ,
+                cp_name=f"l_{mode}", env=CraftEnv.capture(envmap),
+                device=dev)
+            launches_of[mode] = _delta(c0, _counts())
+            runs[mode] = res
+            st = res.cp_stats
+            modes[mode] = {
+                "runtime_s": res.wall_s + res.fence_s,
+                "iter_median_s": statistics.median(res.iter_s),
+                "versions": st.get("writes", 0),
+                "write_s_per_version": (st["write_seconds"] / st["writes"]
+                                        if st.get("writes") else None),
+                "tier_bytes_written": st.get("tier_bytes_written", 0),
+                "launches": {k: launches_of[mode][k]
+                             for k in ("checksum", "snapshot")}}
+            shutil.rmtree(root, ignore_errors=True)
+        none = runs["none"]
+        require(np.array_equal(free.alphas, none.alphas)
+                and np.array_equal(free.betas, none.betas),
+                "lanczos: the run without deterministic algorithms gave "
+                "other alphas/betas")
+        modes["none"]["iter_median_s_not_deterministic"] = \
+            statistics.median(free.iter_s)
+        base_s = modes["none"]["runtime_s"]
+        for mode in ("sync", "async", "node"):
+            m = modes[mode]
+            require(np.array_equal(runs[mode].alphas, none.alphas)
+                    and np.array_equal(runs[mode].betas, none.betas),
+                    f"lanczos {mode}: checkpointing changed alphas/betas")
+            require(m["versions"] == n_versions,
+                    f"lanczos {mode}: {m['versions']} versions, "
+                    f"not {n_versions}")
+            m["overhead_s"] = m["runtime_s"] - base_s
+            m["overhead_per_cp_s"] = m["overhead_s"] / n_versions
+        lo, hi = DISORDERED_EDGE
+        require(lo <= none.eigenvalue <= hi,
+                f"lanczos W={LANCZOS_DISORDER}: smallest Ritz value "
+                f"{none.eigenvalue} outside [{lo}, {hi}]")
+
+        # crash at FAIL_AT, then a second call resumes from the version
+        # before it (synchronous pfs)
+        env = CraftEnv.capture(_lanczos_mode_env("crash", scratch / "crash"))
+        try:
+            L.run_lanczos(cfg, n_iter=LANCZOS_ITERS,
+                          cp_freq=LANCZOS_CP_FREQ, env=env,
+                          fail_at=LANCZOS_FAIL_AT, device=dev)
+            crashed = None
+        except RuntimeError as exc:
+            crashed = str(exc)
+        require(crashed == f"injected failure at iteration {LANCZOS_FAIL_AT}",
+                f"lanczos crash run ended with {crashed!r}")
+        rerun = L.run_lanczos(cfg, n_iter=LANCZOS_ITERS,
+                              cp_freq=LANCZOS_CP_FREQ, env=env, device=dev)
+        last_cp = LANCZOS_FAIL_AT // LANCZOS_CP_FREQ * LANCZOS_CP_FREQ
+        require(rerun.restarted_at == last_cp,
+                f"lanczos rerun restarted at {rerun.restarted_at}, not "
+                f"{last_cp}")
+        require(np.array_equal(rerun.alphas, none.alphas)
+                and np.array_equal(rerun.betas, none.betas),
+                "lanczos rerun: alphas/betas differ from the uninterrupted "
+                "run")
+        crash = {"restarted_at": rerun.restarted_at,
+                 "restore_s": rerun.cp_stats["read_seconds"],
+                 "restore_tier": rerun.cp_stats["restore_tier"],
+                 "rerun_runtime_s": rerun.wall_s + rerun.fence_s}
+        shutil.rmtree(scratch / "crash", ignore_errors=True)
+
+        peak_one_rank = (torch.cuda.max_memory_allocated()
+                         if dev.type == "cuda" else None)
+        # Fig. 8: two ranks in an AFT zone with one spare node, async writes;
+        # rank 0 fail-stopped by SimWorld.kill at FAIL_AT dies on its writer
+        # thread at the next version's publish barrier
+        aft = L.aft_lanczos(scratch / "aft", cfg, LANCZOS_ITERS,
+                            LANCZOS_CP_FREQ, LANCZOS_FAIL_AT, device=dev,
+                            kill=True, envmap={"CRAFT_WRITE_ASYNC": "1"},
+                            timeout=600)
+        members = aft["members"]
+        require([m["rank"] for m in members] == [0, 1],
+                f"lanczos aft members {[m['rank'] for m in members]}")
+        for m in members:
+            require(m["resumed_from"] == last_cp,
+                    f"lanczos aft rank {m['rank']} resumed from "
+                    f"{m['resumed_from']}")
+            require(m["eig"] == none.eigenvalue
+                    and np.array_equal(m["alphas"], none.alphas)
+                    and np.array_equal(m["betas"], none.betas),
+                    f"lanczos aft rank {m['rank']}: differs from the "
+                    f"failure-free run")
+        failed = [s["failed"] for s in aft["recoveries"]]
+        require(failed and all(f == [0] for f in failed),
+                f"lanczos aft recoveries {failed}")
+        iter_s = modes["none"]["iter_median_s"]
+        redo_steps = aft["hook_calls"][1] - LANCZOS_ITERS
+        fig8 = {"oh_cp_s": modes["async"]["overhead_s"],
+                "oh_rec_s": max(s["total_s"] for s in aft["recoveries"]),
+                "redo_steps": redo_steps,
+                "oh_redo_s": redo_steps * iter_s,
+                "aft_wall_s": aft["wall_s"],
+                "member_wall_s": [m["wall_s"] for m in members],
+                "restore_s": [m["stats"]["read_seconds"] for m in members],
+                "restore_tier": [m["stats"]["restore_tier"]
+                                 for m in members]}
+        shutil.rmtree(scratch / "aft", ignore_errors=True)
+
+        # an answer the card checks on its own: the clean lattice's edge
+        clean = L.run_lanczos(
+            L.GrapheneConfig(nx=LANCZOS_NX, ny=LANCZOS_NX, disorder=0.0,
+                             seed=SEED),
+            n_iter=LANCZOS_ITERS, device=dev)
+        lo, hi = CLEAN_EDGE
+        require(lo <= clean.eigenvalue <= hi,
+                f"lanczos W=0: smallest Ritz value {clean.eigenvalue} "
+                f"outside [{lo}, {hi}]")
+    finally:
+        if dev.type == "cuda":
+            torch.use_deterministic_algorithms(deterministic)
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    require(launches["checksum"] > 0 and launches["snapshot"] > 0
+            and launches_of["sync"]["snapshot"] > 0,
+            f"lanczos phase launches {launches}, of the device snapshot "
+            f"run {launches_of['sync']}")
+    results["lanczos_launches"] = launches
+    return {"phase": "lanczos", "n": cfg.n, "vector_bytes": vec_bytes,
+            "iterations": LANCZOS_ITERS, "cp_freq": LANCZOS_CP_FREQ,
+            "fail_at": LANCZOS_FAIL_AT, "modes": modes, "crash": crash,
+            "fig8": fig8, "eigenvalue": none.eigenvalue,
+            "clean_eigenvalue": clean.eigenvalue,
+            "peak_device_bytes": peak,
+            "peak_device_bytes_before_aft": peak_one_rank,
+            "rss_peak_gib": rss.stop(),
+            "launches": launches, "bit_exact": True,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+# ---------------------------------------------------------------- phase 8
 # deepseek-v3-671b at its published widths, cut to depth 2 (one dense
 # block, one MoE block) beside its MTP head's parameters: 25.5 B
 # parameters, 51 GB in bf16; a third layer would take the weights to 74 GB
@@ -2478,7 +2697,7 @@ PATH_OF = {"checksum": "launches", "snapshot": "launches",
            "flash_attention": "serve_launches",
            "ssd_scan": "serve_launches", "s6_scan": "serve_launches"}
 ALL_PHASES = ["build", "kernels", "main", "default", "redundancy", "aft",
-              "serve", "train"]
+              "lanczos", "serve", "train"]
 
 
 def main(argv=None) -> int:
@@ -2534,6 +2753,9 @@ def main(argv=None) -> int:
         if "aft" in phases:
             run("aft", phase_aft, results, scratch / "aft")
             shutil.rmtree(scratch / "aft", ignore_errors=True)
+        if "lanczos" in phases:
+            run("lanczos", phase_lanczos, results, scratch / "lanczos")
+            shutil.rmtree(scratch / "lanczos", ignore_errors=True)
         if "serve" in phases:
             run("serve", phase_serve, results, scratch / "serve")
         if "train" in phases:
@@ -2557,6 +2779,8 @@ def main(argv=None) -> int:
                       "bound_by": t["bound_by"],
                       "library_ms": t.get("library_ms"),
                       "train_launches": results["train_launches"][
+                          k["name"]],
+                      "lanczos_launches": results["lanczos_launches"][
                           k["name"]],
                       **({"mla_prefill": t["mla_prefill"]}
                          if "mla_prefill" in t else {})})

@@ -38,6 +38,20 @@ def state_from_numpy(tree, device="cuda"):
         else x, tree)
 
 
+def lanczos_init_from_numpy(eps: np.ndarray, v0: np.ndarray,
+                            device="cuda"):
+    """The ``init=`` pair of ``apps.lanczos.run_lanczos``: another
+    package's on-site term and unnormalized start vector (e.g. the
+    reference's ``onsite(cfg)`` and its ``PRNGKey(cfg.seed + 1)`` normal
+    draw, as numpy), float32 (nx, ny, 2) each, as tensors on ``device``."""
+    eps, v0 = np.asarray(eps), np.asarray(v0)
+    if eps.shape != v0.shape or eps.ndim != 3 or eps.shape[-1] != 2:
+        raise ValueError(f"a Lanczos problem is two (nx, ny, 2) arrays, got "
+                         f"{eps.shape} and {v0.shape}")
+    return (tensor_from_numpy(eps.astype(np.float32), device),
+            tensor_from_numpy(v0.astype(np.float32), device))
+
+
 def params_from_numpy(tree, cfg, device="cuda"):
     """A model parameter tree (numpy leaves, e.g. the reference's
     ``init_params`` turned into numpy) as tensors on ``device``.  Every leaf

@@ -37,6 +37,7 @@ import time
 from typing import Callable, Optional, TypeVar
 
 from repro_torch.core.comm import CommError, FTComm, ProcFailedError, RevokedError
+from repro_torch.core.cpbase import CheckpointError
 from repro_torch.core.env import CraftEnv
 
 log = logging.getLogger("craft.aft")
@@ -106,7 +107,13 @@ def aft_zone(
             if not comm.agree(True):
                 raise ProcFailedError("exit agreement failed")
             return result
-        except (ProcFailedError, RevokedError) as exc:
+        except (ProcFailedError, RevokedError, CheckpointError) as exc:
+            # a peer's failure met on the async writer thread surfaces as
+            # the cause of a CheckpointError; the synchronous write path
+            # raises the same failure bare
+            if isinstance(exc, CheckpointError) and not isinstance(
+                    exc.__cause__, (ProcFailedError, RevokedError)):
+                raise
             recoveries += 1
             if recoveries > max_recoveries:
                 raise AftAbortedError(

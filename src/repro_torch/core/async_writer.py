@@ -54,6 +54,7 @@ class AsyncWriter:
         self._pin = tuple(pin_cpulist)
         self._error: Optional[BaseException] = None
         self._error_label: Optional[str] = None
+        self._failstopped = False
         self._pending = 0
         self._cv = threading.Condition()
         # ordered lane (sequencer)
@@ -118,11 +119,15 @@ class AsyncWriter:
             job, label = item
             t0 = time.perf_counter()
             try:
-                job()
+                if not self._failstopped:
+                    job()
             except BaseException as exc:  # surfaced at next wait()/submit()
                 with self._cv:
                     self._error = exc
                     self._error_label = label
+                    # a dead process runs nothing more: the jobs queued
+                    # behind a fail-stop are dropped, not written late
+                    self._failstopped = not isinstance(exc, Exception)
             finally:
                 dt = time.perf_counter() - t0
                 with self._cv:
@@ -303,7 +308,12 @@ class AsyncWriter:
             # job's identity.  OSErrors propagate unwrapped — callers match
             # on their type/errno, and the storage layer already embedded
             # tier/version/array context in the message at the fault site.
-            if label and not isinstance(err, OSError):
+            # A fail-stop (a BaseException that is not an Exception: a
+            # simulated rank's KilledError, KeyboardInterrupt, SystemExit)
+            # propagates unwrapped too, so the process dies as it would
+            # have on its own thread (the reference wraps it).
+            if label and isinstance(err, Exception) \
+                    and not isinstance(err, OSError):
                 from repro_torch.core.cpbase import CheckpointError
 
                 raise CheckpointError(

@@ -343,6 +343,11 @@ class Checkpoint:
                 label=f"{self.name} v-{version}")
         elif self.env.write_async:
             # copy-based: snapshot inline (cheap D2H), IO on writer thread.
+            # Each checkpointable holds one snapshot buffer, which the
+            # previous version's job may still be writing: fence it first,
+            # or that version lands torn (its early files from one
+            # snapshot, its late ones from this).  The reference does not.
+            self._writer.wait()
             self._update_all()
             self._writer.submit(
                 lambda v=version, d=decision: self._write_version(v, d),
@@ -668,11 +673,14 @@ class Checkpoint:
             )
         except BaseException as exc:
             from repro_torch.core.chaos import ChaosCrash
+            from repro_torch.core.comm import KilledError
 
-            # a simulated process death leaves its staging dir behind — the
-            # crash-consistency protocol (tmp sweep on next start) owns the
-            # cleanup, exactly as after a real crash
-            if not isinstance(exc, ChaosCrash):
+            # a simulated process death (a chaos crash, a killed simulated
+            # rank) leaves its staging dir behind — the crash-consistency
+            # protocol (tmp sweep on next start) owns the cleanup, exactly
+            # as after a real crash; a dead rank must not delete the
+            # staging its replacement and the survivors write into
+            if not isinstance(exc, (ChaosCrash, KilledError)):
                 store.abort(staged)
             self.stats.inc("retries", io_stats.get("retries", 0))
             raise

@@ -94,6 +94,11 @@ class SimWorld:
             except KilledError:
                 pass                      # this rank was the fault-injection target
             except BaseException as exc:  # surfaced to run()
+                # a killed incarnation runs on until its next communicator
+                # call; whatever it meets before it (a peer aborting the
+                # version it was still staging) is part of its death
+                if self.is_dead_token(uid):
+                    return
                 with self._lock:
                     self._errors[rank] = exc
 

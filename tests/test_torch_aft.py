@@ -400,3 +400,218 @@ def test_aft_kill_respawn_same_state_in_both_packages(tmp_path):
     assert {r: v[2] for r, v in port.items()} == \
         {r: v[2] for r, v in ref.items()} == {r: "node" for r in range(4)}
     assert clean[0][2] is None
+
+
+# -- a killed rank's asynchronous write ------------------------------------
+def _pub_env(tmp_path, enable="1"):
+    return CraftEnv.capture({
+        "CRAFT_ENABLE": enable,
+        "CRAFT_CP_PATH": str(tmp_path / "pfs"),
+        "CRAFT_USE_SCR": "0",
+        "CRAFT_WRITE_ASYNC": "1",
+        "CRAFT_COMM_RECOVERY_POLICY": "NON-SHRINKING",
+        # every rank's second publish passes a (1 ms) stall; rank 0's first
+        # incarnation turns its stall into the kill
+        "CRAFT_CHAOS": "pfs:stall:ms=1+op=publish+at=1",
+    })
+
+
+def _killed_in_publish_run(tmp_path, kill):
+    """2 ranks, async writes, a version every step.  With ``kill``, rank 0
+    is fail-stopped while its writer thread is inside the publish of v-2,
+    before the barrier there.  Returns {rank: (state bytes, it, restored
+    version, replacement)} of each rank's final incarnation."""
+    env = _pub_env(tmp_path, "1")
+    world = SimWorld(2, spare_nodes=1, env=env)
+    out, deaths = {}, []
+
+    def body(comm):
+        r = comm.rank
+        it = Box(0)
+        state = Box(torch.from_numpy(_shard(r)))
+        cp = Checkpoint("pub", comm, env=env)
+        cp.add("it", it)
+        cp.add(f"state-{r}", state)
+        cp.commit()
+        if kill and r == 0 and comm.epoch == 0:
+            def kill_in_publish(_seconds):
+                deaths.append(threading.current_thread().name)
+                world.kill(0)
+            cp._chaos._sleep = kill_in_publish
+        restored = cp.version if cp.restart_if_needed() else None
+        while it.value < 5:
+            it.value += 1
+            state.value = state.value * 0.5 + float(it.value * (r + 1))
+            cp.update_and_write()
+        cp.wait()
+        cp.close()
+        out[r] = (state.value.numpy().tobytes(), it.value, restored,
+                  comm.is_replacement())
+        return comm.size
+
+    res = world.run(lambda c: aft_zone(c, body, env=env), timeout=120)
+    assert set(res.values()) == {2}
+    return out, deaths
+
+
+def test_kill_inside_an_async_publish_is_recovered(tmp_path):
+    """The killed rank's KilledError is raised on its writer thread, at the
+    barrier inside ``VersionStore.publish``; it surfaces unwrapped, so the
+    rank dies as a fail-stop, the survivor's zone sees the process failure
+    (raised to it as the cause of a CheckpointError by its own writer), a
+    replacement is spawned, and both resume from v-1 and end on the
+    failure-free run's state."""
+    clean, _ = _killed_in_publish_run(tmp_path / "clean", kill=False)
+    got, deaths = _killed_in_publish_run(tmp_path / "kill", kill=True)
+    assert deaths == ["craft-writer-pub"]
+    for r in (0, 1):
+        assert got[r][:2] == clean[r][:2], r
+        assert got[r][2] == 1 and clean[r][2] is None
+    assert got[0][3] and not got[1][3]
+
+
+def _raise(exc):
+    def job():
+        raise exc
+    return job
+
+
+def test_port_writer_passes_a_fail_stop_through_unwrapped():
+    from repro_torch.core.async_writer import AsyncWriter
+    from repro_torch.core.comm import KilledError
+
+    w = AsyncWriter()
+    ran = []
+    w.submit(_raise(KilledError()), label="c v-2")
+    w.submit(lambda: ran.append(1), label="c v-3")
+    with pytest.raises(KilledError):
+        w.wait()
+    assert ran == []        # a dead process writes nothing after its death
+    w.close()
+
+
+def test_reference_writer_wraps_a_fail_stop():
+    """The deliberate difference: the reference's AsyncWriter wraps the same
+    stored KilledError in a CheckpointError (so a simulated rank killed
+    inside an async publish is reported as crashed, not as fail-stopped)."""
+    from repro.core.async_writer import AsyncWriter as RefWriter
+    from repro.core.comm import KilledError as RefKilled
+    from repro.core.cpbase import CheckpointError as RefCheckpointError
+
+    w = RefWriter()
+    w.submit(_raise(RefKilled()), label="c v-2")
+    with pytest.raises(RefCheckpointError) as info:
+        w.wait()
+    assert isinstance(info.value.__cause__, RefKilled)
+    w.close()
+
+
+@pytest.mark.parametrize("exc, raised", [
+    (RuntimeError("boom"), "CheckpointError"),
+    (ProcFailedError("peer gone", failed=[1]), "CheckpointError"),
+    (OSError(5, "eio"), "OSError"),
+])
+def test_port_writer_still_wraps_ordinary_errors(exc, raised):
+    """Non-regression: an ordinary exception keeps the CheckpointError
+    wrapper (with the job's label, the error as its cause); an OSError
+    passes through unwrapped; later jobs still run."""
+    from repro_torch.core.async_writer import AsyncWriter
+    from repro_torch.core.cpbase import CheckpointError
+
+    w = AsyncWriter()
+    ran = []
+    w.submit(_raise(exc), label="c v-2")
+    w.submit(lambda: ran.append(1), label="c v-3")
+    with pytest.raises((CheckpointError, OSError)) as info:
+        w.wait()
+    assert type(info.value).__name__ == raised
+    if raised == "CheckpointError":
+        assert "c v-2" in str(info.value) and info.value.__cause__ is exc
+    else:
+        assert info.value is exc
+    assert ran == [1]
+    w.close()
+
+
+def test_zone_recovers_from_a_wrapped_comm_failure_only():
+    """aft_zone takes a CheckpointError caused by ProcFailedError as that
+    process failure (an async write's form of it) and re-raises any other
+    CheckpointError."""
+    from repro_torch.core.cpbase import CheckpointError
+
+    world = SimWorld(2, env=_env())
+    calls = {0: 0, 1: 0}
+
+    def body(c):
+        calls[c.rank] += 1
+        if calls[c.rank] == 1:
+            try:
+                raise ProcFailedError("peer", failed=[])
+            except ProcFailedError as exc:
+                raise CheckpointError("async write failed") from exc
+        return c.size
+
+    assert set(world.run(lambda c: aft_zone(c, body), timeout=60).values()) \
+        == {2}
+    assert calls == {0: 2, 1: 2}
+
+    def bad(c):
+        raise CheckpointError("digest mismatch")
+
+    with pytest.raises(RuntimeError, match="digest mismatch"):
+        SimWorld(1, env=_env()).run(lambda c: aft_zone(c, bad), timeout=60)
+
+
+def test_async_version_is_not_torn_by_the_next_snapshot(tmp_path):
+    """A copy-based async version holds the snapshot taken when it was
+    scheduled, even when its job is still writing as the next version is
+    scheduled (its first file write stalls 300 ms here): the next
+    snapshot waits for it."""
+    import json
+
+    env = CraftEnv.capture({
+        "CRAFT_CP_PATH": str(tmp_path), "CRAFT_USE_SCR": "0",
+        "CRAFT_WRITE_ASYNC": "1",
+        "CRAFT_CHAOS": "pfs:stall:ms=300+op=write+count=1",
+    })
+    it = Box(0)
+    x = Box(torch.zeros(1000))
+    with Checkpoint("torn", env=env) as cp:
+        cp.add("it", it)
+        cp.add("x", x)
+        cp.commit()
+        for v in (1, 2):
+            it.value = v
+            x.value = torch.full((1000,), float(v))
+            cp.update_and_write()
+        cp.wait()
+    pod = json.loads((tmp_path / "torn" / "v-1" / "it" / "pod.json")
+                     .read_text())
+    assert pod["value"] == 1
+
+
+@pytest.mark.parametrize("killed", [True, False])
+def test_a_killed_rank_leaves_its_staging_behind(tmp_path, killed):
+    """A KilledError inside a tier write is a process death: the staging
+    directory stays for the next start's sweep (the survivors and the
+    replacement write into it), as after a chaos crash; any other error
+    still aborts it."""
+    from repro_torch.core.comm import KilledError
+
+    env = CraftEnv.capture({"CRAFT_CP_PATH": str(tmp_path),
+                            "CRAFT_USE_SCR": "0",
+                            "CRAFT_CHAOS": "pfs:stall:ms=1+op=publish"})
+    exc = KilledError() if killed else RuntimeError("boom")
+    cp = Checkpoint("stage", env=env)
+    cp.add("x", Box(torch.ones(100)))
+    cp.commit()
+
+    def die(_seconds):
+        raise exc
+
+    cp._chaos._sleep = die
+    with pytest.raises(type(exc)):
+        cp.update_and_write(1)
+    staged = [p.name for p in (tmp_path / "stage").iterdir()
+              if p.name.startswith(".tmp-")]
+    assert bool(staged) == killed, staged

@@ -339,7 +339,9 @@ def test_cuda_is_the_default_device(tmp_path):
 
 def test_port_imports_neither_jax_nor_the_reference():
     """Every module of the package, found by walking it, imports; the walk
-    must find the training slice's modules among them."""
+    must find the training slice's modules, the Lanczos app and the
+    examples among them (``tests/test_torch_examples.py`` runs each
+    example and checks the same of the run)."""
     code = ("import importlib, pkgutil, sys, repro_torch; "
             "mods = [m.name for m in pkgutil.walk_packages("
             "repro_torch.__path__, 'repro_torch.')]; "
@@ -347,12 +349,16 @@ def test_port_imports_neither_jax_nor_the_reference():
             "need = {'repro_torch.data.pipeline', 'repro_torch.optim.adamw', "
             "'repro_torch.train.steps', 'repro_torch.launch.train', "
             "'repro_torch.kernels.flash_attention.blocked', "
-            "'repro_torch.kernels.ssm_scan.backward'}; "
+            "'repro_torch.kernels.ssm_scan.backward', "
+            "'repro_torch.apps.lanczos', 'repro_torch.examples.quickstart', "
+            "'repro_torch.examples.nested_checkpoints', "
+            "'repro_torch.examples.lanczos_aft', "
+            "'repro_torch.examples.train_with_failures'}; "
             "missing = sorted(need - set(mods)); "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')); print(len(mods), bad, missing); "
-            "sys.exit(1 if bad or missing or len(mods) < 48 else 0)")
+            "sys.exit(1 if bad or missing or len(mods) < 55 else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr

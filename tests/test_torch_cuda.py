@@ -724,3 +724,35 @@ def test_adamw_sliced_on_the_card_equals_whole_on_cpu(cuda, bits, master,
         else:
             torch.testing.assert_close(gpu, c, rtol=1e-6, atol=1e-7,
                                        msg=lambda m: f"{path}: {m}")
+
+
+# -- the Lanczos app on the card ------------------------------------------
+def test_lanczos_on_the_card_equals_cpu(cuda):
+    """The same problem (drawn on the CPU) solved on the card and on the
+    CPU: alphas and betas of 100 iterations at 64² within 1e-5."""
+    from repro_torch.apps import lanczos as L
+
+    cfg = L.GrapheneConfig(nx=64, ny=64, disorder=0.3)
+    eps, v0 = L.onsite(cfg, "cpu"), L.start_vector(cfg, "cpu")
+    cpu = L.run_lanczos(cfg, n_iter=100, device="cpu", init=(eps, v0))
+    card = L.run_lanczos(cfg, n_iter=100, device=cuda,
+                         init=(eps.to(cuda), v0.to(cuda)))
+    np.testing.assert_allclose(card.alphas, cpu.alphas, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(card.betas, cpu.betas, rtol=0, atol=1e-5)
+    assert abs(card.eigenvalue - cpu.eigenvalue) < 1e-5
+
+
+def test_lanczos_crash_and_rerun_on_the_card_is_bit_exact(cuda, tmp_path):
+    from repro_torch.apps import lanczos as L
+
+    cfg = L.GrapheneConfig(nx=64, ny=64, disorder=0.3)
+    clean = L.run_lanczos(cfg, n_iter=100, device=cuda)
+    env = CraftEnv.capture({"CRAFT_CP_PATH": str(tmp_path),
+                            "CRAFT_USE_SCR": "0"})
+    with pytest.raises(RuntimeError, match="iteration 45"):
+        L.run_lanczos(cfg, n_iter=100, cp_freq=20, env=env, fail_at=45,
+                      device=cuda)
+    res = L.run_lanczos(cfg, n_iter=100, cp_freq=20, env=env, device=cuda)
+    assert res.restarted_at == 40
+    assert np.array_equal(res.alphas, clean.alphas)
+    assert np.array_equal(res.betas, clean.betas)
