@@ -82,7 +82,21 @@ Phases, each printing one JSON line:
    from 40 and end on the same numbers; the clean lattice's smallest Ritz
    value must lie within [-3 - 1e-5, -3 + 1e-3] and the disordered one's
    within [-3.3 - 1e-5, -3]; checksum and snapshot launched.
-8. serve — ``repro_torch.launch.serve.run`` on h2o-danube-1.8b,
+8. cluster — the same scenario on real worker processes
+   (``apps.lanczos.cluster_lanczos`` over ``repro_torch.runtime.Cluster``),
+   each rank a process with its own CUDA context on the card: (a) the
+   lanczos phase's problem and plan, 2 ranks and a spare node,
+   NON-SHRINKING, async writes, rank 0 SIGKILLs itself at 60; a spawned
+   replacement hydrates from 40; (b) at 4096², 3 ranks, SHRINKING, sync
+   writes through the device snapshot, rank 2 SIGKILLed by this process
+   once it passed 60.  Every member's alphas and betas must equal an
+   uninterrupted one-process run's, the recovery must name the killed
+   rank, no worker may outlive its Cluster, and the workers must have
+   launched checksum and snapshot (each reports its own counts).  Prints
+   per-rank iteration ms, Table 3's recovery phases, the replacement's
+   spawn-to-hello seconds, Fig. 8's overheads, per-rank peak device bytes
+   and the card's least free memory.
+9. serve — ``repro_torch.launch.serve.run`` on h2o-danube-1.8b,
    zamba2-2.7b, falcon-mamba-7b and deepseek-v3-671b at full width (their
    CONFIGs; deepseek cut to depth 2, one dense and one MoE block beside
    its MTP head's parameters, registered as ``deepseek-v3-671b-d2``) in
@@ -99,7 +113,7 @@ Phases, each printing one JSON line:
    chunked route and of the decode on the sequential one.  Then
    torch.profiler traces of a few decode steps (the device's busy time and
    idle share) and of one prefill (device seconds by kernel family).
-9. train — in a child process (``--phases train-child``, with
+10. train — in a child process (``--phases train-child``, with
    CUBLAS_WORKSPACE_CONFIG=:4096:8 and deterministic algorithms): zamba2-2.7b
    at full width through ``repro_torch.launch.train.run``, bf16, B 2 x L
    4096, seeded random weights, AdamW with 32-bit moments, per-block remat:
@@ -118,10 +132,11 @@ Phases, each printing one JSON line:
 
 Each phase's line carries its wall seconds (``wall_s``), and a line before
 the kernel table sums them.
-Each path phase (main, redundancy, aft, lanczos, serve, train) sets the kernels'
-launch counts to 0 before it runs and reads them after.  Then the kernel table (JSON), the
-card's name and power limit, and the last line ``{"ok": true, "device":
-{...}}``.  Any failure exits non-zero without
+Each path phase (main, redundancy, aft, lanczos, cluster, serve, train) sets
+the kernels' launch counts to 0 before it runs and reads them after (the
+cluster phase adds the counts its worker processes report).  Then the
+kernel table (JSON), the card's name and power limit, and the last line
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that line; so does a machine without a CUDA card, or a directory without
 the port's sources.  Scratch files go to ``build/`` inside the checkout and
 are removed at the end.
@@ -129,6 +144,7 @@ are removed at the end.
 from __future__ import annotations
 
 import argparse
+import collections
 import gc
 import json
 import math
@@ -1919,6 +1935,147 @@ def phase_lanczos(results: dict, scratch: Path) -> dict:
             "phase_s": time.perf_counter() - t_phase}
 
 
+# ---------------------------------------------------------------- cluster
+# Fig. 8 on real worker processes (``apps.lanczos.cluster_lanczos`` over
+# ``repro_torch.runtime.Cluster``): one process a rank, each with its own
+# CUDA context on the card, fail-stopped by SIGKILL and repaired by the
+# ULFM recipe.  (a) is the lanczos phase's problem and plan; (b) is cut to
+# 4096² (128 MiB a vector) to save phase time.
+CLUSTER_RUNS = (
+    # name, lattice side, ranks, recovery, who kills, killed rank, CRAFT env
+    ("a", LANCZOS_NX, 2, "NON-SHRINKING", "self", 0,
+     {"CRAFT_WRITE_ASYNC": "1"}),
+    ("b", 4096, 3, "SHRINKING", "parent", 2, {"CRAFT_DEVICE_SNAPSHOT": "1"}),
+)
+CLUSTER_TIMEOUT_S = 300
+
+
+def _worker_orphans() -> list:
+    """Names of this process's live Cluster worker children."""
+    import multiprocessing
+
+    return [p.name for p in multiprocessing.active_children()
+            if p.name.startswith("craft-worker-")]
+
+
+def _cluster_run(run, dev, scratch: Path) -> tuple:
+    """One of CLUSTER_RUNS against an uninterrupted single-process run in
+    this process; returns its summary and the workers' launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.apps import lanczos as L
+
+    name, nx, n_procs, policy, kill_by, fail_rank, envmap = run
+    cfg = L.GrapheneConfig(nx=nx, ny=nx, disorder=LANCZOS_DISORDER,
+                           seed=SEED)
+    clean = L.run_lanczos(cfg, n_iter=LANCZOS_ITERS, device=dev)
+    _free_host_cache()          # the workers get the card's memory
+    out = L.cluster_lanczos(scratch / name, cfg, LANCZOS_ITERS,
+                            LANCZOS_CP_FREQ, LANCZOS_FAIL_AT, n_procs,
+                            device=dev, policy=policy, kill_by=kill_by,
+                            fail_rank=fail_rank, envmap=envmap,
+                            timeout=CLUSTER_TIMEOUT_S)
+    orphans = _worker_orphans()
+    require(not orphans, f"cluster {name}: workers outlived their Cluster: "
+            f"{orphans}")
+    members = out["members"]
+    require([(m["rank"], m["size"]) for m in members] == [(0, 2), (1, 2)],
+            f"cluster {name}: (rank, size) of the members "
+            f"{[(m['rank'], m['size']) for m in members]}")
+    for m in members:
+        require(np.array_equal(m["alphas"], clean.alphas)
+                and np.array_equal(m["betas"], clean.betas),
+                f"cluster {name} rank {m['rank']}: alphas/betas differ from "
+                f"the uninterrupted run")
+    failed = [s["failed"] for s in out["recoveries"]]
+    require(failed == [[fail_rank]], f"cluster {name}: recoveries {failed}")
+    rec = out["recoveries"][0]
+    last_cp = LANCZOS_FAIL_AT // LANCZOS_CP_FREQ * LANCZOS_CP_FREQ
+    hydrated = [m["hydrated"] for m in members if m["hydrated"]]
+    if policy == "NON-SHRINKING":
+        require(all(m["resumed_from"] == last_cp for m in members),
+                f"cluster {name}: resumed from "
+                f"{[m['resumed_from'] for m in members]}, not {last_cp}")
+        require(len(hydrated) == 1 and hydrated[0]["restored"]
+                and hydrated[0]["tier"],
+                f"cluster {name}: replacement hydration {hydrated}")
+    iter_ms = {m["rank"]: statistics.median(m["iter_s"]) * 1e3
+               for m in members}
+    clean_ms = statistics.median(clean.iter_s) * 1e3
+    per_rank = {m["rank"]: {
+        "iter_ms": iter_ms[m["rank"]], "start_s": m["start_s"],
+        "zone_s": m["zone_s"], "steps_begun": m["hook_calls"],
+        "resumed_from": m["resumed_from"],
+        "restore_s": m["stats"].get("read_seconds"),
+        "restore_tier": m["stats"].get("restore_tier"),
+        "replacement": bool(m["hydrated"]),
+        "peak_device_bytes": m["peak_device_bytes"],
+        "launches": m["launches"]} for m in members}
+    # Fig. 8's terms for the first survivor: its zone's seconds against 200
+    # steps at its own pace; OH_rec the coordinator's recovery, OH_redo the
+    # steps begun twice, the rest (version writes, the restore) OH_cp
+    m = next(m for m in members if not m["hydrated"])
+    sec = iter_ms[m["rank"]] / 1e3
+    overhead = m["zone_s"] - LANCZOS_ITERS * sec
+    redo = m["hook_calls"] - LANCZOS_ITERS
+    fig8 = {"rank": m["rank"], "overhead_s": overhead, "redo_steps": redo,
+            "oh_redo_s": redo * sec, "oh_rec_s": rec["total_s"],
+            "oh_cp_and_restore_s": overhead - redo * sec - rec["total_s"]}
+    summary = {
+        "run": name, "nx": nx, "ranks": n_procs, "policy": policy,
+        "kill_by": kill_by, "killed_rank": fail_rank,
+        "env": envmap, "wall_s": out["wall_s"],
+        "iter_ms_uninterrupted_one_process": clean_ms,
+        "per_rank": per_rank, "fig8": fig8,
+        "table3": {k: rec[k] for k in ("revoke_shrink_s", "spawn_info_s",
+                                       "spawn_merge_s", "redistribute_s",
+                                       "resource_mgmt_s")},
+        "replacement_spawn_to_hello_s": (rec["spawn_merge_s"]
+                                         if policy == "NON-SHRINKING"
+                                         else None),
+        "hydrated": hydrated[0] if hydrated else None,
+        "card_free_bytes_min": out["min_free_bytes"]}
+    launches = collections.Counter()
+    for m in members:
+        launches.update(m["launches"])
+    return summary, launches
+
+
+def phase_cluster(results: dict, scratch: Path) -> dict:
+    import torch
+
+    dev = torch.device(DEVICE)
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    _free_host_cache()          # what earlier phases left in the caches
+    rss = RssPeak()
+    _reset_counts()
+    runs, workers = [], collections.Counter()
+    if dev.type == "cuda":
+        # as the lanczos phase; cluster_lanczos turns them on in the
+        # workers because they are on here
+        torch.use_deterministic_algorithms(True)
+    try:
+        for run in CLUSTER_RUNS:
+            summary, launches = _cluster_run(run, dev, scratch)
+            runs.append(summary)
+            workers.update(launches)
+            shutil.rmtree(scratch / run[0], ignore_errors=True)
+    finally:
+        if dev.type == "cuda":
+            torch.use_deterministic_algorithms(deterministic)
+    require(workers["checksum"] > 0 and workers["snapshot"] > 0,
+            f"cluster phase: worker launches {dict(workers)}")
+    parent = _counts()
+    # the kernels run in the workers; the parent's own runs checkpoint
+    # nothing and launch none of them
+    launches = {k: parent[k] + workers.get(k, 0) for k in parent}
+    results["cluster_launches"] = launches
+    return {"phase": "cluster", "runs": runs, "launches": launches,
+            "parent_launches": parent, "parent_rss_peak_gib": rss.stop(),
+            "bit_exact": True}
+
+
 # ---------------------------------------------------------------- phase 8
 # deepseek-v3-671b at its published widths, cut to depth 2 (one dense
 # block, one MoE block) beside its MTP head's parameters: 25.5 B
@@ -2697,7 +2854,7 @@ PATH_OF = {"checksum": "launches", "snapshot": "launches",
            "flash_attention": "serve_launches",
            "ssd_scan": "serve_launches", "s6_scan": "serve_launches"}
 ALL_PHASES = ["build", "kernels", "main", "default", "redundancy", "aft",
-              "lanczos", "serve", "train"]
+              "lanczos", "cluster", "serve", "train"]
 
 
 def main(argv=None) -> int:
@@ -2756,6 +2913,9 @@ def main(argv=None) -> int:
         if "lanczos" in phases:
             run("lanczos", phase_lanczos, results, scratch / "lanczos")
             shutil.rmtree(scratch / "lanczos", ignore_errors=True)
+        if "cluster" in phases:
+            run("cluster", phase_cluster, results, scratch / "cluster")
+            shutil.rmtree(scratch / "cluster", ignore_errors=True)
         if "serve" in phases:
             run("serve", phase_serve, results, scratch / "serve")
         if "train" in phases:
@@ -2781,6 +2941,8 @@ def main(argv=None) -> int:
                       "train_launches": results["train_launches"][
                           k["name"]],
                       "lanczos_launches": results["lanczos_launches"][
+                          k["name"]],
+                      "cluster_launches": results["cluster_launches"][
                           k["name"]],
                       **({"mla_prefill": t["mla_prefill"]}
                          if "mla_prefill" in t else {})})

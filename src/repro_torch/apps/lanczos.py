@@ -27,7 +27,8 @@ counter, under the reference's item names, so a version written by either
 package resumes in the other.  :func:`run_with_hook` and
 :func:`aft_lanczos` are the per-iteration failure hook and the 2-rank AFT
 zone with one spare node of paper Fig. 8 (the reference keeps them in
-``benchmarks/lanczos_aft.py``).
+``benchmarks/lanczos_aft.py``); :func:`cluster_lanczos` runs the same
+scenario on real worker processes killed with SIGKILL.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import Box, Checkpoint
+from repro_torch.core.elastic import hydrate_replacement
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,7 +146,7 @@ def _open_checkpoint(name, comm, env, device, state):
     for k, v in state.items():
         cp.add(k, v)
     cp.commit()
-    return cp, cp.restart_if_needed()
+    return cp
 
 
 def _iterate(cfg, eps, state, n_iter, cp, cp_freq, hook=None, stop_at=None,
@@ -211,8 +213,8 @@ def run_lanczos(
     cp = None
     restarted_at = 0
     if cp_freq:
-        cp, restarted = _open_checkpoint(cp_name, comm, env, device, state)
-        if restarted:
+        cp = _open_checkpoint(cp_name, comm, env, device, state)
+        if cp.restart_if_needed():
             restarted_at = state["it"].value
 
     t0 = time.perf_counter()
@@ -254,14 +256,23 @@ def reference_eigenvalue(cfg: GrapheneConfig, device="cpu",
 
 def run_with_hook(cfg: GrapheneConfig, n_iter: int, cp_freq: int, comm, env,
                   hook: Callable[[int, Checkpoint], None], *,
-                  device="cuda") -> Dict:
+                  device="cuda",
+                  init: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                  ) -> Dict:
     """The :func:`run_lanczos` loop with ``hook(it, cp)`` called before
     every step (the failure hook of paper Fig. 8; ``cp`` is the open
     checkpoint, so a hook can fence its writes), checkpointed as
-    ``aftlan`` on ``comm``.  Returns the reference's {"eig", "wall_s",
-    "stats", "resumed_from"} plus "rank", "alphas", "betas" and "iter_s"."""
-    eps, state = _initial_state(cfg, n_iter, device, None)
-    cp, restarted = _open_checkpoint("aftlan", comm, env, device, state)
+    ``aftlan`` on ``comm``; ``init`` as in :func:`run_lanczos`.  A rank
+    spawned by NON-SHRINKING recovery restores through
+    :func:`~repro_torch.core.elastic.hydrate_replacement`.  Returns the
+    reference's {"eig", "wall_s", "stats", "resumed_from"} plus "rank",
+    "alphas", "betas", "iter_s" and "hydrated" (the replacement's
+    {"restored", "tier", "reseeded"}, else None)."""
+    eps, state = _initial_state(cfg, n_iter, device, init)
+    cp = _open_checkpoint("aftlan", comm, env, device, state)
+    hydrated = hydrate_replacement(cp) if comm.is_replacement() else None
+    restarted = (hydrated["restored"] if hydrated is not None
+                 else cp.restart_if_needed())
     t0 = time.perf_counter()
     redo_iters = state["it"].value if restarted else 0
     try:
@@ -279,6 +290,7 @@ def run_with_hook(cfg: GrapheneConfig, n_iter: int, cp_freq: int, comm, env,
         "alphas": state["alphas"][:k].copy(),
         "betas": state["betas"][:k].copy(),
         "iter_s": iter_s,
+        "hydrated": hydrated,
     }
 
 
@@ -348,3 +360,145 @@ def aft_lanczos(base, cfg: GrapheneConfig, n_iter: int, cp_freq: int,
     return {"members": sorted(out.values(), key=lambda r: r["rank"]),
             "recoveries": recoveries, "hook_calls": dict(calls),
             "wall_s": time.perf_counter() - t0}
+
+
+def _cluster_member(comm, base: str, cfg: GrapheneConfig, n_iter: int,
+                    cp_freq: int, fail_at: Optional[int], fail_rank: int,
+                    kill_by: str, device: str, envmap: dict,
+                    deterministic: bool, init) -> Dict:
+    """One worker process of :func:`cluster_lanczos` (module level, so the
+    spawn start method can pickle it): :func:`run_with_hook` in an AFT
+    zone on the process's ``ProcComm``.  Returns host values only."""
+    started = time.time()
+    import os
+    import signal
+
+    from repro_torch.convert import lanczos_init_from_numpy
+    from repro_torch.core.aft import aft_zone
+    from repro_torch.core.env import CraftEnv
+    from repro_torch.kernels.checksum.kernel import checksum_rows
+    from repro_torch.kernels.snapshot.kernel import snapshot_chunks_cuda
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index or 0)
+    if deterministic:
+        # a spawned process inherits none of its parent's torch flags
+        torch.use_deterministic_algorithms(True)
+    env = CraftEnv.capture(envmap)
+    if init is not None:
+        init = lanczos_init_from_numpy(*init, device=dev)
+    hook_calls = 0
+    marked = threading.Event()
+
+    def body(c):
+        def maybe_fail(it, cp):
+            nonlocal hook_calls
+            hook_calls += 1
+            if it == fail_at and c.rank == fail_rank and c.epoch == 0:
+                if kill_by == "self":
+                    cp.wait()    # the version before fail_at has landed
+                    os.kill(os.getpid(), signal.SIGKILL)
+                # the parent kills this process at a point it does not
+                # choose, possibly inside an async publish
+                (Path(base) / f"reached-{fail_rank}").touch()
+                marked.set()
+            if marked.is_set() and it == n_iter - 1:
+                # the SIGKILL lands before the last step at the latest, so
+                # the survivors meet it at a collective, not after the
+                # zone's exit agreement (which completes over the living)
+                threading.Event().wait()
+
+        return run_with_hook(cfg, n_iter, cp_freq, c, env, maybe_fail,
+                             device=dev, init=init)
+
+    t0 = time.perf_counter()
+    out = aft_zone(comm, body, env=env)
+    out["zone_s"] = time.perf_counter() - t0
+    out["size"] = comm.size
+    out["hook_calls"] = hook_calls
+    out["started"] = started
+    out["launches"] = {"checksum": checksum_rows.launches,
+                       "snapshot": snapshot_chunks_cuda.launches}
+    out["peak_device_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                                if dev.type == "cuda" else None)
+    return out
+
+
+def cluster_lanczos(base, cfg: GrapheneConfig, n_iter: int, cp_freq: int,
+                    fail_at: Optional[int], n_procs: int = 2, *,
+                    device="cuda", policy: str = "NON-SHRINKING",
+                    kill_by: str = "self", fail_rank: int = 0,
+                    envmap: Optional[dict] = None,
+                    init: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+                    timeout: float = 600.0) -> Dict:
+    """Paper Fig. 8's failure scenario on real worker processes
+    (:class:`repro_torch.runtime.Cluster`, one process a rank, each with
+    its own CUDA context on a card): every rank runs
+    :func:`run_with_hook` in an AFT zone, checkpointing to ``base``/pfs.
+    At iteration ``fail_at`` of its first incarnation rank ``fail_rank``
+    is fail-stopped by SIGKILL: ``kill_by="self"`` fences its writes and
+    kills itself there (a fixed point); ``kill_by="parent"`` touches a
+    marker file and runs on until this process, polling for the marker,
+    kills it (the paper's ``pkill -9``); such a rank waits for its death
+    before its last step at the latest.  ``policy`` is the recovery:
+    NON-SHRINKING spawns a replacement on the one spare node, SHRINKING
+    carries on with the survivors.  Deterministic algorithms are turned on
+    in the workers when they are on here.  ``envmap`` is the workers'
+    CRAFT environment and their ``env_overrides``.  ``init`` is the
+    problem as numpy (on-site term, start vector), as
+    ``convert.lanczos_init_from_numpy`` takes it; by default each worker
+    draws the seeded one.
+
+    Returns {"members": each finishing process's result (host values:
+    :func:`run_with_hook`'s, plus its zone's seconds, size, steps begun,
+    kernel launches, peak device bytes and "start_s", the seconds from
+    this call to the worker function's start), by rank; "recoveries": the coordinator's recovery stats (Table 3's
+    phases); "hook_calls": steps begun, by member; "wall_s";
+    "min_free_bytes": the card's least free memory seen from here while
+    the cluster ran (None off the card)}.
+    """
+    from repro_torch.runtime import Cluster
+
+    if kill_by not in ("self", "parent"):
+        raise ValueError(
+            f"kill_by must be 'self' or 'parent', not {kill_by!r}")
+    policy = policy.upper()
+    base = Path(base)
+    base.mkdir(parents=True, exist_ok=True)
+    envmap = {"CRAFT_CP_PATH": str(base / "pfs"), "CRAFT_USE_SCR": "0",
+              **(envmap or {}), "CRAFT_COMM_RECOVERY_POLICY": policy}
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    cluster = Cluster(n_procs, spare_nodes=int(policy == "NON-SHRINKING"),
+                      recovery_policy=policy, env_overrides=envmap)
+    marker = base / f"reached-{fail_rank}"
+    armed = kill_by == "parent" and fail_at is not None
+    min_free = None
+    t0, t0_wall = time.perf_counter(), time.time()
+    try:
+        cluster.start(_cluster_member, str(base), cfg, n_iter, cp_freq,
+                      fail_at, fail_rank, kill_by, str(dev), envmap,
+                      torch.are_deterministic_algorithms_enabled(), init)
+        while True:
+            if on_card:
+                free = torch.cuda.mem_get_info(dev)[0]
+                min_free = free if min_free is None else min(min_free, free)
+            if armed and marker.exists():
+                cluster.kill(fail_rank)
+                armed = False
+            try:
+                results = cluster.join(timeout=0.05)
+                break
+            except TimeoutError:
+                if time.perf_counter() - t0 > timeout:
+                    raise
+    finally:
+        cluster.shutdown()
+    members = sorted(results.values(), key=lambda r: r["rank"])
+    for m in members:
+        m["start_s"] = m.pop("started") - t0_wall
+    last = cluster.coord.last_recovery
+    return {"members": members, "recoveries": [dict(last)] if last else [],
+            "hook_calls": {m["rank"]: m["hook_calls"] for m in members},
+            "wall_s": time.perf_counter() - t0, "min_free_bytes": min_free}

@@ -11,9 +11,10 @@ Public surface:
     StorageTier               — storage backend interface (tiers & codec)
     metrics / telemetry       — live telemetry plane (/metrics, /healthz)
 
-Not ported yet: the multi-process runtime (``repro.runtime``), the
-JAX-mesh elastic helpers (``repro.core.elastic``) and the trace
-simulate/tune loop.
+The multi-process runtime is :mod:`repro_torch.runtime`; the elastic
+helpers are :mod:`repro_torch.core.elastic`.  Not ported yet: the
+JAX-mesh half of ``repro.core.elastic`` (``shrink_mesh``, ``reshard``,
+``dp_degree``) and the trace simulate/tune loop.
 """
 from repro_torch.core import metrics, telemetry
 from repro_torch.core.aft import AftAbortedError, AftZone, aft_zone

@@ -20,7 +20,7 @@ backends:
 
   * :mod:`repro_torch.core.comm_sim` — deterministic in-process simulator
     (threads), used by unit tests and large-scale recovery benchmarks,
-  * :mod:`repro.runtime` — a real multi-process cluster where ``kill -9`` of
+  * :mod:`repro_torch.runtime` — a real multi-process cluster where ``kill -9`` of
     a worker is the paper's fail-stop fault model.
 """
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Collective-matching + recovery engine shared by the FTComm backends.
 
-The in-process simulator (:mod:`repro_torch.core.comm_sim`) needs this
-bookkeeping (the reference shares it with its multiprocessing coordinator,
-``runtime/coordinator.py``, which this package does not have yet):
+Both the in-process simulator (:mod:`repro_torch.core.comm_sim`) and the
+real multiprocessing coordinator (:mod:`repro_torch.runtime.coordinator`)
+need the same bookkeeping:
 
   * **epochs** — one generation of the communicator (ULFM: a communicator
     object); failure breaks an epoch, recovery registers the next one;

@@ -14,13 +14,13 @@ import torch
 
 import repro.core as R
 from repro.core.comm_sim import SimWorld as RefSimWorld
-from repro.core.elastic import block_index
 
 from repro_torch.core import Box, ShardCp
 from repro_torch.core import Checkpoint as _Checkpoint
 from repro_torch.core.aft import AftAbortedError, aft_zone
 from repro_torch.core.comm import ProcFailedError, RevokedError
 from repro_torch.core.comm_sim import SimComm, SimWorld
+from repro_torch.core.elastic import block_index
 from repro_torch.core.env import CraftEnv
 from repro_torch.core.mem_level import MemFabric
 

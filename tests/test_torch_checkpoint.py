@@ -339,8 +339,8 @@ def test_cuda_is_the_default_device(tmp_path):
 
 def test_port_imports_neither_jax_nor_the_reference():
     """Every module of the package, found by walking it, imports; the walk
-    must find the training slice's modules, the Lanczos app and the
-    examples among them (``tests/test_torch_examples.py`` runs each
+    must find the training slice's modules, the Lanczos app, the examples,
+    the multi-process runtime and the elastic helpers among them (``tests/test_torch_examples.py`` runs each
     example and checks the same of the run)."""
     code = ("import importlib, pkgutil, sys, repro_torch; "
             "mods = [m.name for m in pkgutil.walk_packages("
@@ -353,7 +353,10 @@ def test_port_imports_neither_jax_nor_the_reference():
             "'repro_torch.apps.lanczos', 'repro_torch.examples.quickstart', "
             "'repro_torch.examples.nested_checkpoints', "
             "'repro_torch.examples.lanczos_aft', "
-            "'repro_torch.examples.train_with_failures'}; "
+            "'repro_torch.examples.train_with_failures', "
+            "'repro_torch.runtime.cluster', "
+            "'repro_torch.runtime.coordinator', "
+            "'repro_torch.runtime.worker', 'repro_torch.core.elastic'}; "
             "missing = sorted(need - set(mods)); "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "

@@ -756,3 +756,42 @@ def test_lanczos_crash_and_rerun_on_the_card_is_bit_exact(cuda, tmp_path):
     assert res.restarted_at == 40
     assert np.array_equal(res.alphas, clean.alphas)
     assert np.array_equal(res.betas, clean.betas)
+
+
+# -- the multi-process runtime on the card ---------------------------------
+def _card_roundtrip(comm, base, device):
+    """A Cluster worker (module level: spawn pickles it by name): one
+    version of a rank-private 4 MiB tensor written and restored on the
+    card, digests through the checksum kernel.  Returns host values."""
+    torch.cuda.set_device(0)
+    env = CraftEnv.capture({"CRAFT_CP_PATH": base, "CRAFT_USE_SCR": "0"})
+    g = torch.Generator(device=device).manual_seed(comm.rank)
+    x = torch.randn((1024, 1024), generator=g, device=device)
+    with Checkpoint("card", comm, env=env, device=device) as cp:
+        cp.add(f"x-{comm.rank}", Box(x))
+        cp.commit()
+        cp.update_and_write(1)
+    live = Box(torch.zeros_like(x))
+    with Checkpoint("card", comm, env=env, device=device) as cp:
+        cp.add(f"x-{comm.rank}", live)
+        cp.commit()
+        restored = cp.restart_if_needed()
+    return {"restored": restored, "equal": bool(torch.equal(live.value, x)),
+            "launches": checksum_rows.launches}
+
+
+def test_cluster_writes_and_restores_on_the_card(cuda, tmp_path):
+    """Two worker processes, each with its own CUDA context, write one
+    version and restore it bit for bit; each launched the checksum kernel
+    (a worker's count lives in its own process)."""
+    from repro_torch.runtime import Cluster
+
+    cluster = Cluster(n_procs=2)
+    try:
+        cluster.start(_card_roundtrip, str(tmp_path), "cuda")
+        results = cluster.join(timeout=120)
+    finally:
+        cluster.shutdown()
+    assert sorted(results) == [0, 1]
+    for r in results.values():
+        assert r["restored"] and r["equal"] and r["launches"] > 0
