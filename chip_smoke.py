@@ -55,20 +55,41 @@ Phases, each printing one JSON line:
 4. default — the default configuration (codec v1, node,pfs, PARTNER) on
    256 MiB of CUDA state: write, bit-exact restore, then one flipped payload
    byte in every tier's copy must raise the checksum-mismatch error.
-5. redundancy — the same h2o-danube-1.8b state split over 4 ranks as a
-   4-stage pipeline-parallel job holds it (rank 0: embedding + layers 0-5,
-   ranks 1-2: 6 layers each, rank 3: layers 18-23 + final norm + lm_head;
-   0.83-1.0 GB each, unequal), the ranks being SimWorld threads on the one
-   card, CRAFT_TIER_CHAIN=node with groups of 4: XOR writes 2 versions (2
-   layers updated between them), loses one node's tree and rebuilds it
-   through xor_reduce; RS (CRAFT_RS_PARITY=2) does the same losing two
-   nodes (gf_matmul syndrome + inverse); one rotted parity shard is
-   re-encoded by the scrubber, one rotted member file is repaired on read.
-   Every restore is torch.equal for every tensor.
-6. aft — aft_zone over the same 4 ranks, NON-SHRINKING, mem,node with RS
-   (m=2) and one RAM replica: ranks 1 and 2 die mid-loop and lose their node
-   trees; the final state must equal (torch.equal) the same loop run
-   without failures.
+3b. control — CRAFT's control plane on the same h2o-danube-1.8b bf16
+   state: 12 opportunities of the Listing-2 loop (2 layers change between
+   them) on the default chain node,pfs with CRAFT_DEVICE_SNAPSHOT=1,
+   CRAFT_DELTA=1 and the adaptive scheduler's count cadences
+   CRAFT_TIER_EVERY=node:2,pfs:4, under a node-tier outage
+   (CRAFT_CHAOS=node:eio:p=1+after=4+count=6, no retries, breaker
+   threshold 2, cooldown 0.05 s), CRAFT_KEEP_VERSIONS=2, traced
+   (CRAFT_TRACE) and exported (CRAFT_METRICS_PORT=0 on localhost).  The
+   breaker must trip and route versions to the PFS, the node tier must be
+   re-admitted with a full version and then take deltas; ``top --once``
+   renders the live exporter during the outage (node breaker not closed)
+   and the trace at the end; a fresh Checkpoint restores the newest
+   version through its delta chain, torch.equal for every tensor; the
+   port's ``replay`` of the trace must re-derive every decision and land
+   the live per-tier counts and bytes; ``python -m repro_torch.tune
+   --fail-on-regression`` must exit 0.  Prints each version's write
+   seconds and bytes by tier (full or delta), snapshot and restore
+   seconds, the replay mismatches, the simulated as-run and recommended
+   overheads with the recommended env block, and the disk bytes.
+5. redundancy — the h2o-danube-1.8b state at full width cut to 12 of its
+   24 blocks (PARITY_LAYERS, for the smoke's time; 1,995,043,840 bytes)
+   split over 4 ranks as a 4-stage pipeline-parallel job holds it (rank
+   0: embedding + layers 0-2, ranks 1-2: 3 layers each, rank 3: layers
+   9-11 + final norm + lm_head; 0.42-0.58 GB each, unequal), the ranks
+   being SimWorld threads on the one card, CRAFT_TIER_CHAIN=node with
+   groups of 4: XOR writes 2 versions (2 layers updated between them),
+   loses one node's tree and rebuilds it through xor_reduce; RS
+   (CRAFT_RS_PARITY=2) does the same losing two nodes (gf_matmul syndrome
+   + inverse); one rotted parity shard is re-encoded by the scrubber, one
+   rotted member file is repaired on read.  Every restore is torch.equal
+   for every tensor.
+6. aft — aft_zone over the same 4 ranks and 12-block state,
+   NON-SHRINKING, mem,node with RS (m=2) and one RAM replica: ranks 1 and
+   2 die mid-loop and lose their node trees; the final state must equal
+   (torch.equal) the same loop run without failures.
 7. lanczos — the paper's showcase (§5.1, Table 4, Fig. 8):
    ``repro_torch.apps.lanczos`` on an 8192 x 8192 honeycomb lattice with
    on-site disorder 0.3 (n = 134,217,728; 512 MiB a float32 vector), 200
@@ -132,7 +153,8 @@ Phases, each printing one JSON line:
 
 Each phase's line carries its wall seconds (``wall_s``), and a line before
 the kernel table sums them.
-Each path phase (main, redundancy, aft, lanczos, cluster, serve, train) sets
+Each path phase (main, control, redundancy, aft, lanczos, cluster, serve,
+train) sets
 the kernels' launch counts to 0 before it runs and reads them after (the
 cluster phase adds the counts its worker processes report).  Then the
 kernel table (JSON), the card's name and power limit, and the last line
@@ -1112,12 +1134,13 @@ def train_kernels(cases: list, timing: dict) -> None:
 
 
 # ---------------------------------------------------------------- phase 3
-def danube_shapes() -> dict:
-    """Shapes of the h2o-danube-1.8b parameter set, by state-dict key."""
+def danube_shapes(n_layers: int = N_LAYERS) -> dict:
+    """Shapes of the h2o-danube-1.8b parameter set, by state-dict key
+    (``n_layers`` of its blocks)."""
     d, hd = D_MODEL, HEAD_DIM
     shapes = {"embed.embedding": (VOCAB, d), "final_ln": (d,),
               "lm_head": (d, VOCAB)}
-    for i in range(N_LAYERS):
+    for i in range(n_layers):
         p = f"blocks.{i:02d}."
         shapes.update({
             p + "ln1": (d,), p + "ln2": (d,),
@@ -1129,13 +1152,19 @@ def danube_shapes() -> dict:
     return shapes
 
 
-def danube_state(device, gen):
+def danube_state(device, gen, n_layers: int = N_LAYERS):
     """The h2o-danube-1.8b parameter set as a flat bf16 state dict."""
     import torch
 
     return {k: torch.randn(s, generator=gen, device=device,
                            dtype=torch.bfloat16) * 0.02
-            for k, s in danube_shapes().items()}
+            for k, s in danube_shapes(n_layers).items()}
+
+
+# depth of the redundancy and aft phases' state: their 4 rank threads stage
+# every byte on the host, so the smoke's time limit cuts them to half the
+# blocks (full width; embedding and lm_head whole)
+PARITY_LAYERS = 12
 
 
 def stage_of(key: str) -> int:
@@ -1143,7 +1172,7 @@ def stage_of(key: str) -> int:
     if key.startswith("embed."):
         return 0
     if key.startswith("blocks."):
-        return int(key.split(".")[1]) // (N_LAYERS // N_STAGES)
+        return int(key.split(".")[1]) // (PARITY_LAYERS // N_STAGES)
     return N_STAGES - 1                       # final_ln, lm_head
 
 
@@ -1151,7 +1180,7 @@ def stage_words() -> int:
     """Words of the largest stage's parameters, padded to the parity lane
     (the shape the redundancy path gives the parity kernels)."""
     per = [0] * N_STAGES
-    for k, shp in danube_shapes().items():
+    for k, shp in danube_shapes(PARITY_LAYERS).items():
         n = 1
         for x in shp:
             n *= x
@@ -1378,6 +1407,203 @@ def phase_default(scratch: Path) -> dict:
             "launches": _counts(), "flipped": flipped, "detected": detected}
 
 
+# ---------------------------------------------------------------- phase 3b
+CONTROL_ITERS = 12               # checkpoint opportunities of the loop
+CONTROL_EVERY = "node:2,pfs:4"   # the adaptive scheduler's count cadences
+CONTROL_CHAOS = "node:eio:p=1+after=4+count=6"
+
+
+def _control_env(root: Path, **extra):
+    from repro_torch.core import CraftEnv
+
+    return CraftEnv.capture({
+        "CRAFT_CP_PATH": str(root / "pfs"),
+        "CRAFT_NODE_CP_PATH": str(root / "node"),
+        "CRAFT_DEVICE_SNAPSHOT": "1",
+        "CRAFT_DELTA": "1",
+        "CRAFT_KEEP_VERSIONS": "2",
+        **extra,
+    })
+
+
+def _top_frame(top, argv) -> list:
+    """One ``top --once`` frame as lines (the CLI's own entry point)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = top.main([*argv, "--once", "--no-color"])
+    require(rc == 0, f"top {argv} exited {rc}")
+    return buf.getvalue().splitlines()
+
+
+def phase_control(results: dict, scratch: Path) -> dict:
+    import torch
+
+    from repro_torch import top
+    from repro_torch.core import Box, Checkpoint, telemetry, tiers, trace
+    from repro_torch.core.simulate import load_trace, replay
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    state = danube_state(dev, gen)
+    state_bytes = sum(t.numel() * t.element_size() for t in state.values())
+    trace_path = scratch / "control-trace.jsonl"
+    env = _control_env(
+        scratch, CRAFT_TIER_EVERY=CONTROL_EVERY, CRAFT_CHAOS=CONTROL_CHAOS,
+        CRAFT_IO_RETRIES="0", CRAFT_IO_BACKOFF_MS="1",
+        CRAFT_BREAKER_THRESHOLD="2", CRAFT_BREAKER_COOLDOWN_S="0.05",
+        CRAFT_TRACE=str(trace_path), CRAFT_METRICS="1",
+        CRAFT_METRICS_PORT="0")
+    require(env.tier_chain == ("node", "pfs") and env.delta
+            and env.device_snapshot, "control env is not node,pfs + delta "
+            "+ device snapshot")
+    torch_sync()
+    _reset_counts()
+    it = Box(0)
+    cp = Checkpoint("control", env=env, device=DEVICE)
+    cp.add("iteration", it)
+    cp.add("params", Box(state))
+    cp.commit()
+    require(not cp.restart_if_needed(), "fresh run found a checkpoint")
+    url = f"http://localhost:{telemetry.port()}"
+    versions, live_frame = [], None
+    try:
+        for step in range(1, CONTROL_ITERS + 1):
+            t0 = time.perf_counter()
+            for layer in (2 * step % N_LAYERS, (2 * step + 1) % N_LAYERS):
+                for k, t in state.items():
+                    if k.startswith(f"blocks.{layer:02d}."):
+                        t.add_(torch.randn(t.shape, generator=gen,
+                                           device=dev, dtype=t.dtype) * 0.01)
+            torch_sync()
+            cp.policy.observe_step_seconds(time.perf_counter() - t0)
+            it.value = step
+            if not cp.need_checkpoint(step):
+                continue
+            before = dict(cp.stats)
+            t0 = time.perf_counter()
+            cp.update_and_write(step)
+            total = time.perf_counter() - t0
+            write_s = cp.stats["write_seconds"] - before["write_seconds"]
+            versions.append({
+                "iteration": step, "version": cp.version,
+                "snapshot_s": total - write_s, "write_s": write_s,
+                "degraded": (cp.stats["degraded_writes"]
+                             - before["degraded_writes"]),
+                "node_breaker": cp.health["node"].state})
+            if live_frame is None and cp.health["node"].state != "closed":
+                # the outage, seen through the live exporter
+                live = top.model_from_url(url)
+                require(live["breakers"].get("node") not in (None, "closed"),
+                        f"exporter shows node breaker {live['breakers']}")
+                live_frame = _top_frame(top, ["--url", url])
+        cp.wait()
+        stats = dict(cp.stats)
+        final_version = cp.version
+    finally:
+        cp.close()
+        trace.uninstall()
+        telemetry.stop()
+    require(live_frame is not None, "the node breaker never left closed")
+    require(stats["degraded_writes"] > 0 and stats["breaker_trips"] >= 1,
+            f"no degraded route: {stats['degraded_writes']} degraded, "
+            f"{stats['breaker_trips']} trips")
+
+    events = load_trace(trace_path)
+    writes = [e for e in events if e["kind"] == "tier_write"]
+    for v in versions:
+        # a version with no ref chunk is self-contained (full), else delta
+        v["tiers"] = {e["slot"]: {
+            "seconds": e["seconds"], "phys_bytes": e["phys_bytes"],
+            "kind": "delta" if e["ref_chunks"] else "full"}
+            for e in writes if e["version"] == v["version"]}
+    tripped_at = min(e["t"] for e in events if e["kind"] == "breaker")
+    readmit = [e for e in writes if e["slot"] == "node"
+               and e["t"] > tripped_at]
+    require(readmit and readmit[0]["ref_chunks"] == 0
+            and not tiers.read_delta_deps(
+                scratch / "node" / "node-0" / "control"
+                / f"v-{readmit[0]['version']}"),
+            "the node tier's re-admission write was not full")
+    require(any(e["ref_chunks"] for e in readmit[1:]),
+            "no delta version on the node tier after re-admission")
+
+    live = {k: torch.zeros_like(t) for k, t in state.items()}
+    it2 = Box(0)
+    cp2 = Checkpoint("control", env=_control_env(scratch), device=DEVICE)
+    cp2.add("iteration", it2)
+    cp2.add("params", Box(live))
+    cp2.commit()
+    torch_sync()
+    t0 = time.perf_counter()
+    require(cp2.restart_if_needed(), "restore found no checkpoint")
+    torch_sync()
+    restore_s = time.perf_counter() - t0
+    cp2.close()
+    tier = cp2.stats["restore_tier"]
+    require(cp2.version == final_version and it2.value == CONTROL_ITERS,
+            f"restored v{cp2.version} (iteration {it2.value})")
+    vdir = (scratch / "node" / "node-0" if tier == "node"
+            else scratch / "pfs") / "control" / f"v-{final_version}"
+    deps = sorted(tiers.read_delta_deps(vdir))
+    require(deps, f"the restore from {tier} read no delta chain")
+    bad = [k for k in state if not torch.equal(state[k], live[k])]
+    require(not bad, f"restored tensors differ: {bad[:5]}")
+    del live
+    launches = _counts()
+    require(launches["checksum"] > 0 and launches["snapshot"] > 0,
+            f"checksum / snapshot not launched: {launches}")
+    results["control_launches"] = launches
+
+    rep = replay(events)
+    require(rep.decisions_match,
+            f"replay mismatches at {rep.mismatches[:5]}")
+    require(rep.tier_landed.get("node") == stats["node_writes"]
+            and rep.tier_landed.get("pfs") == stats["pfs_writes"],
+            f"replay landed {rep.tier_landed}, live {stats['node_writes']} "
+            f"node / {stats['pfs_writes']} pfs")
+    require(sum(rep.tier_landed_bytes.values())
+            == sum(e["nbytes"] for e in writes),
+            "replayed landed bytes differ from the trace's tier writes")
+    trace_frame = _top_frame(top, ["--trace", str(trace_path)])
+
+    score = scratch / "tune-scorecard.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.tune", "--trace",
+         str(trace_path), "--json", str(score), "--fail-on-regression"],
+        capture_output=True, text=True, timeout=300, cwd=scratch,
+        env={**os.environ, "PYTHONPATH": str(SRC)})
+    require(proc.returncode == 0,
+            f"tune exited {proc.returncode}: {proc.stderr[-2000:]}")
+    rows = {r["name"]: r["value"] for r in json.loads(score.read_text())}
+    block = proc.stdout[proc.stdout.index("# craft tune"):]
+    block = [ln for ln in block.splitlines()
+             if ln and not ln.startswith("wrote scorecard")]
+    return {"phase": "control", "state_bytes": state_bytes,
+            "tensors": len(state), "iterations": CONTROL_ITERS,
+            "versions": versions, "restore_s": restore_s,
+            "restore_tier": tier, "restore_delta_deps": deps,
+            "restore_bit_exact": True,
+            "degraded_writes": stats["degraded_writes"],
+            "breaker_trips": stats["breaker_trips"],
+            "node_writes": stats["node_writes"],
+            "pfs_writes": stats["pfs_writes"],
+            "replay_decisions": len(rep.sim_decisions),
+            "replay_mismatches": len(rep.mismatches),
+            "tier_landed_bytes": rep.tier_landed_bytes,
+            "as_run_overhead_s": rows["as_run_overhead"],
+            "recommended_overhead_s": rows["recommended_overhead"],
+            "tune_improvement_pct": rows["improvement"],
+            "tune_rc": proc.returncode, "recommended_env": block,
+            "top_live": live_frame, "top_trace": trace_frame,
+            "disk_bytes": _dir_bytes(scratch), "launches": launches,
+            "cuts": {"iterations": f"{CONTROL_ITERS} (the reference test "
+                     "runs 40 on 32 KiB)",
+                     "keep_versions": "2 (disk footprint)"}}
+
+
 # ---------------------------------------------------------------- phase 5
 STAGES = ("read", "digest", "pad", "h2d", "kernel", "d2h", "write")
 
@@ -1455,7 +1681,7 @@ def _write_group(env, stages, versions: int) -> list:
         cp.commit()
         for v in range(1, versions + 1):
             if v > 1 and comm.rank == 0:
-                update_layers(stages, (5, 12 + v), SEED + v)
+                update_layers(stages, (5, 8 + v), SEED + v)
             comm.barrier()
             t0 = time.perf_counter()
             cp.update_and_write(v)
@@ -1554,7 +1780,7 @@ def phase_redundancy(results: dict, scratch: Path) -> dict:
     metrics.install()
     dev = torch.device(DEVICE)
     stages = split_stages(danube_state(dev, torch.Generator(
-        device=dev).manual_seed(SEED)))
+        device=dev).manual_seed(SEED), PARITY_LAYERS))
     sizes = [sum(t.numel() * 2 for t in s.values()) for s in stages]
     torch_sync()
     _reset_counts()
@@ -1628,7 +1854,7 @@ def phase_aft(results: dict, scratch: Path) -> dict:
     metrics.install()
     dev = torch.device(DEVICE)
     init = split_stages(danube_state(dev, torch.Generator(
-        device=dev).manual_seed(SEED + 7)))
+        device=dev).manual_seed(SEED + 7), PARITY_LAYERS))
 
     def env_of(enable: str):
         return CraftEnv.capture({
@@ -2853,8 +3079,8 @@ PATH_OF = {"checksum": "launches", "snapshot": "launches",
            "gf_matmul": "redundancy_launches",
            "flash_attention": "serve_launches",
            "ssd_scan": "serve_launches", "s6_scan": "serve_launches"}
-ALL_PHASES = ["build", "kernels", "main", "default", "redundancy", "aft",
-              "lanczos", "cluster", "serve", "train"]
+ALL_PHASES = ["build", "kernels", "main", "default", "control",
+              "redundancy", "aft", "lanczos", "cluster", "serve", "train"]
 
 
 def main(argv=None) -> int:
@@ -2903,6 +3129,9 @@ def main(argv=None) -> int:
         if "default" in phases:
             run("default", phase_default, scratch / "default")
             shutil.rmtree(scratch / "default", ignore_errors=True)
+        if "control" in phases:
+            run("control", phase_control, results, scratch / "control")
+            shutil.rmtree(scratch / "control", ignore_errors=True)
         if "redundancy" in phases:
             run("redundancy", phase_redundancy, results,
                 scratch / "redundancy")
@@ -2943,6 +3172,8 @@ def main(argv=None) -> int:
                       "lanczos_launches": results["lanczos_launches"][
                           k["name"]],
                       "cluster_launches": results["cluster_launches"][
+                          k["name"]],
+                      "control_launches": results["control_launches"][
                           k["name"]],
                       **({"mla_prefill": t["mla_prefill"]}
                          if "mla_prefill" in t else {})})

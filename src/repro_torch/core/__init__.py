@@ -10,11 +10,12 @@ Public surface:
     CraftEnv                  — paper Table 2 environment variables
     StorageTier               — storage backend interface (tiers & codec)
     metrics / telemetry       — live telemetry plane (/metrics, /healthz)
+    trace / simulate / tune   — record → replay → auto-tune loop
 
 The multi-process runtime is :mod:`repro_torch.runtime`; the elastic
 helpers are :mod:`repro_torch.core.elastic`.  Not ported yet: the
 JAX-mesh half of ``repro.core.elastic`` (``shrink_mesh``, ``reshard``,
-``dp_degree``) and the trace simulate/tune loop.
+``dp_degree``).
 """
 from repro_torch.core import metrics, telemetry
 from repro_torch.core.aft import AftAbortedError, AftZone, aft_zone

@@ -340,7 +340,8 @@ def test_cuda_is_the_default_device(tmp_path):
 def test_port_imports_neither_jax_nor_the_reference():
     """Every module of the package, found by walking it, imports; the walk
     must find the training slice's modules, the Lanczos app, the examples,
-    the multi-process runtime and the elastic helpers among them (``tests/test_torch_examples.py`` runs each
+    the multi-process runtime, the elastic helpers and the record → replay →
+    tune tooling among them (``tests/test_torch_examples.py`` runs each
     example and checks the same of the run)."""
     code = ("import importlib, pkgutil, sys, repro_torch; "
             "mods = [m.name for m in pkgutil.walk_packages("
@@ -356,12 +357,14 @@ def test_port_imports_neither_jax_nor_the_reference():
             "'repro_torch.examples.train_with_failures', "
             "'repro_torch.runtime.cluster', "
             "'repro_torch.runtime.coordinator', "
-            "'repro_torch.runtime.worker', 'repro_torch.core.elastic'}; "
+            "'repro_torch.runtime.worker', 'repro_torch.core.elastic', "
+            "'repro_torch.core.simulate', 'repro_torch.core.tune', "
+            "'repro_torch.top', 'repro_torch.tune'}; "
             "missing = sorted(need - set(mods)); "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')); print(len(mods), bad, missing); "
-            "sys.exit(1 if bad or missing or len(mods) < 55 else 0)")
+            "sys.exit(1 if bad or missing or len(mods) < 98 else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr

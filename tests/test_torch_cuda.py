@@ -795,3 +795,61 @@ def test_cluster_writes_and_restores_on_the_card(cuda, tmp_path):
     assert sorted(results) == [0, 1]
     for r in results.values():
         assert r["restored"] and r["equal"] and r["launches"] > 0
+
+
+def test_traced_chaos_loop_on_the_card_replays_exactly(cuda, tmp_path):
+    """A node-tier outage under the device snapshot and the delta codec on
+    a CUDA state: the breaker trips, versions route to the PFS, the node
+    tier is re-admitted, the trace replays with zero decision mismatches
+    and the newest version restores bit for bit; the device snapshot's
+    kernel ran.  The breaker's cooldown runs on an injected clock, a
+    second an iteration."""
+    from repro_torch.core import trace
+    from repro_torch.core.simulate import load_trace, replay
+
+    tpath = tmp_path / "trace.jsonl"
+    base = {"CRAFT_CP_PATH": str(tmp_path / "pfs"),
+            "CRAFT_NODE_CP_PATH": str(tmp_path / "node"),
+            "CRAFT_DEVICE_SNAPSHOT": "1", "CRAFT_DELTA": "1",
+            "CRAFT_CHUNK_BYTES": str(64 * 1024)}
+    env = CraftEnv.capture({
+        **base, "CRAFT_TIER_EVERY": "node:2,pfs:4", "CRAFT_IO_RETRIES": "0",
+        "CRAFT_CHAOS": "node:eio:p=1+after=4+count=6",
+        "CRAFT_BREAKER_THRESHOLD": "2", "CRAFT_BREAKER_COOLDOWN_S": "0.05",
+        "CRAFT_IO_BACKOFF_MS": "1", "CRAFT_TRACE": str(tpath)})
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    state = {f"w{i}": torch.randn((256, 1024), generator=gen, device=cuda)
+             for i in range(8)}
+    snap0 = snapshot_chunks_cuda.launches
+    now = [0.0]
+    cp = Checkpoint("ctl", env=env, clock=lambda: now[0])
+    cp.add("state", Box(state))
+    cp.commit()
+    try:
+        for it in range(1, 13):
+            now[0] += 1.0
+            state[f"w{it % 8}"].add_(1.0)
+            if cp.need_checkpoint(it):
+                cp.update_and_write(it)
+        stats = dict(cp.stats)
+    finally:
+        cp.close()
+        trace.uninstall()
+    assert stats["degraded_writes"] > 0 and stats["breaker_trips"] >= 1
+    assert cp.health["node"].state == "closed"
+    assert snapshot_chunks_cuda.launches > snap0
+    events = load_trace(tpath)
+    r = replay(events)
+    assert r.decisions_match, f"mismatches at {r.mismatches[:5]}"
+    assert r.tier_landed["node"] == stats["node_writes"]
+    assert r.tier_landed["pfs"] == stats["pfs_writes"]
+    assert sum(r.tier_landed_bytes.values()) == sum(
+        e["nbytes"] for e in events if e["kind"] == "tier_write")
+    live = {k: torch.zeros_like(t) for k, t in state.items()}
+    cp2 = Checkpoint("ctl", env=CraftEnv.capture(base))
+    cp2.add("state", Box(live))
+    cp2.commit()
+    assert cp2.restart_if_needed()
+    cp2.close()
+    assert cp2.version == cp.version
+    assert all(torch.equal(state[k], live[k]) for k in state)
