@@ -25,7 +25,9 @@ Phases, each printing one JSON line:
    split_decode, scalar) checked against the wrapper's rule; MLA's head
    dims (dqk 192, dv 128) on each route in both dtypes; then at the
    serving path's shapes (danube, zamba2 and deepseek-v3's MLA prefill at
-   B 2, L 8192; one decode step over each full cache) in float32 and
+   B 2, L 8192; musicgen's MHA 24 x 64 over its 64-frame prefix, L 8256,
+   a ragged last tile; llava's GQA 56/8 x 128 over its 1152-patch prefix,
+   L 9344; one decode step over each full cache) in float32 and
    bfloat16, timed in bfloat16 on its route and on the scalar route beside
    the plain version and scaled_dot_product_attention, with the
    HMMA/HGMMA count of the built library (cuobjdump -sass); ssd_scan and
@@ -36,8 +38,8 @@ Phases, each printing one JSON line:
    on both routes, timed beside the plain chunked scan, and a sweep of
    both routes over L (64 to 2048 at B 2, and 8192 at B 16).  The
    training path's use of them: the attention kernel's log-sum-exp on
-   tc_prefill and scalar (rows that see no key, kv_len 0, zamba2's train
-   shape (2, 32, 4096, 80)) against the plain one; the attention Function
+   tc_prefill and scalar (rows that see no key, kv_len 0, zamba2's width
+   at (2, 32, 4096, 80)) against the plain one; the attention Function
    (kernel forward, blocked backward) at zamba2's width (32 heads of 80,
    L 2048; GQA 4 with a window at L 1024) in bf16 and float32, and the
    scan Function, whose forward takes the chunked route at every L, at
@@ -118,17 +120,22 @@ Phases, each printing one JSON line:
    spawn-to-hello seconds, Fig. 8's overheads, per-rank peak device bytes
    and the card's least free memory.
 9. serve — ``repro_torch.launch.serve.run`` on h2o-danube-1.8b,
-   zamba2-2.7b, falcon-mamba-7b and deepseek-v3-671b at full width (their
-   CONFIGs; deepseek cut to depth 2, one dense and one MoE block beside
-   its MTP head's parameters, registered as ``deepseek-v3-671b-d2``) in
-   bf16, random weights from a seeded generator, one model on the card at
-   a time: batch 2, an 8192-token prompt (longer than danube's 4096 window)
-   and 32 greedy tokens uninterrupted; the same with a decode checkpoint
+   zamba2-2.7b, falcon-mamba-7b, deepseek-v3-671b, musicgen-medium,
+   llava-next-34b and kimi-k2-1t-a32b at full width (their CONFIGs;
+   deepseek cut to depth 2, one dense and one MoE block beside its MTP
+   head's parameters, registered as ``deepseek-v3-671b-d2``; llava cut to
+   depth 8, ``llava-next-34b-d8``; kimi to depth 2, one dense and one MoE
+   block, ``kimi-k2-1t-a32b-d2``) in bf16, random weights from a seeded
+   generator, one model on the card at a time: batch 2, an 8192-token
+   prompt (longer than danube's 4096 window; musicgen and llava prefill
+   their frontend's stub, 64 frames and 1152 patches, before it) and 32
+   greedy tokens uninterrupted; the same with a decode checkpoint
    every 16 tokens (CRAFT_TIER_CHAIN=pfs, CRAFT_DEVICE_SNAPSHOT=1) failing
    at token 20; the resumed run must restart at token 16 and give the
-   uninterrupted run's tokens, every logit finite, every attention call
-   of the prefill on the tc_prefill route (MLA's at dqk 192 / dv 128), of
-   the decode on split_decode (MLA's absorbed decode attends in latent
+   uninterrupted run's tokens and last logits, every logit finite, every
+   attention call of the prefill on the tc_prefill route (one a layer;
+   MLA's at dqk 192 / dv 128), of the decode on split_decode (one a layer
+   and token; MLA's absorbed decode attends in latent
    space with plain einsums, as the reference: no kernel call), none on
    scalar, and in each run every scan call of the prefill on the
    chunked route and of the decode on the sequential one.  Then
@@ -137,11 +144,11 @@ Phases, each printing one JSON line:
 10. train — in a child process (``--phases train-child``, with
    CUBLAS_WORKSPACE_CONFIG=:4096:8 and deterministic algorithms): zamba2-2.7b
    at full width through ``repro_torch.launch.train.run``, bf16, B 2 x L
-   4096, seeded random weights, AdamW with 32-bit moments, per-block remat:
-   a run checkpointing every 3 steps (CRAFT_TIER_CHAIN=pfs,
+   2048, seeded random weights, AdamW with 32-bit moments, per-block remat:
+   a run checkpointing every 2 steps (CRAFT_TIER_CHAIN=pfs,
    CRAFT_DEVICE_SNAPSHOT=1, CRAFT_KEEP_VERSIONS=1; 23.4 GB a version) cut
-   after step 5, the resumed run (restart at 3, end at 6) and an
-   uninterrupted 6-step run: losses 4-6, parameters and optimizer state
+   after step 3, the resumed run (restart at 2, end at 4) and an
+   uninterrupted 4-step run: losses 3-4, parameters and optimizer state
    torch.equal; every attention call on tc_prefill and every scan call
    chunked, twice a block and step (remat); checksum and snapshot launched.
    A traced train step splits its device time by family (hand forward
@@ -498,6 +505,7 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # as tests/test_kernels.py
 # pass a dropped key tile; 2e-3 is about ten bf16 ulps of such a row
 ATTN_TOL_FULL = (2e-2, 2e-3)
 MLA_DQK, MLA_DV = 128 + 64, 128  # deepseek-v3's qk (nope + rope) and v dims
+FRONTEND_PREFILLS = ("musicgen_prefill", "llava_prefill")
 # the scans against the plain chunked scan: the two associate the float
 # sums in another order and the state compounds it over L steps
 SCAN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 3e-2)}
@@ -545,25 +553,30 @@ def tensor_core_sass(name: str) -> dict:
             for op in ("HMMA", "HGMMA")}
 
 
-def mla_library(q, k, v, lq: int, kv_len) -> dict:
-    """PyTorch's fused attention timed on MLA's inputs (dqk 192, dv 128,
-    scale 192^-0.5), restricted to its fused backends (flash, memory
+def fused_library(q, k, v, lq: int, kv_len) -> dict:
+    """PyTorch's fused attention timed on the kernel's inputs (scale
+    dqk^-0.5; MLA's dqk 192 / dv 128 too; ``enable_gqa`` where k has fewer
+    heads than q), restricted to its fused backends (flash, memory
     efficient, cuDNN): the math backend would hold every score at once.
-    Where none of them takes dv != dqk, ``library_ms`` is None and
-    ``library`` says why."""
+    Where none of them takes the call (dv != dqk), ``library_ms`` is None
+    and ``library`` says why."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
                 SDPBackend.CUDNN_ATTENTION]
     scale = q.shape[-1] ** -0.5
+    gqa = q.shape[1] != k.shape[1]
     if lq > 1:
         args, kw = (q, k, v), dict(is_causal=True, scale=scale)
-        what = "F.scaled_dot_product_attention(is_causal=True, scale)"
+        what = "F.scaled_dot_product_attention(is_causal=True, scale"
     else:                          # decode: every cached key is visible
         args = (q, k[:, :, :kv_len], v[:, :, :kv_len])
         kw = dict(scale=scale)
-        what = "F.scaled_dot_product_attention(q, k[:kv_len], v[:kv_len])"
+        what = "F.scaled_dot_product_attention(q, k[:kv_len], v[:kv_len]"
+    if gqa:
+        kw["enable_gqa"] = True
+    what += ", enable_gqa=True)" if gqa else ")"
 
     def call():
         with sdpa_kernel(backends):
@@ -710,12 +723,18 @@ def lm_kernels(cases: list, timing: dict) -> None:
         # dqk 192, dv 128) and one step of its re-expanded decode
         "mla_prefill": (128, 128, L, L, True, None, 0, None),
         "mla_decode": (128, 128, 1, L + 32, True, None, L + 31, L + 32),
+        # the frontend models' prefills over their stub prefix and the
+        # prompt: musicgen-medium's MHA 24 x 64 (8256 rows, so the last
+        # 128-row tile is ragged) and llava-next-34b's GQA 56/8 x 128
+        "musicgen_prefill": (24, 24, L + 64, L + 64, True, None, 0, None),
+        "llava_prefill": (56, 8, L + 1152, L + 1152, True, None, 0, None),
     }
+    dims = {"mla_prefill": (MLA_DQK, MLA_DV), "mla_decode": (MLA_DQK, MLA_DV),
+            "musicgen_prefill": (64, 64), "llava_prefill": (128, 128)}
     attn = {}
     for name, (hq, hkv, lq, lk, causal, window, q_offset, kv_len) in \
             shapes.items():
-        dqk, dv = ((MLA_DQK, MLA_DV) if name.startswith("mla")
-                   else (HEAD_DIM, HEAD_DIM))
+        dqk, dv = dims.get(name, (HEAD_DIM, HEAD_DIM))
         kw = dict(causal=causal, window=window, q_offset=q_offset,
                   kv_len=kv_len)
         # float32 first, at the float32 tolerance: a wrong mask edge or
@@ -778,8 +797,8 @@ def lm_kernels(cases: list, timing: dict) -> None:
         t["TFLOPs"] = flops / (t["ms"] * 1e-3) / 1e12
         t["GBps"] = nbytes / (t["ms"] * 1e-3) / 1e9
         # PyTorch's fused attention on the same inputs (timed only)
-        if name.startswith("mla"):
-            t.update(mla_library(q, k, v, lq, kv_len))
+        if name.startswith("mla") or name in FRONTEND_PREFILLS:
+            t.update(fused_library(q, k, v, lq, kv_len))
         elif name == "zamba2_prefill":
             t["library"] = "F.scaled_dot_product_attention(is_causal=True)"
             t["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -802,15 +821,16 @@ def lm_kernels(cases: list, timing: dict) -> None:
         del q, k, v, scratch
         torch.cuda.empty_cache()
     # the table's row: the zamba2 prefill, the shape where one library call
-    # computes the same function with no mask tensor; MLA's prefill beside
-    mla = attn["mla_prefill"]
+    # computes the same function with no mask tensor; MLA's and the
+    # frontend models' prefills beside
+    keep = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library", "max_abs_err", "float32_err")
     row = dict(attn["zamba2_prefill"])
     row.update({"max_abs_err": max(attn_err, max(
         a["max_abs_err"] for a in attn.values())), "shapes": attn,
-        "sass": tensor_core_sass("flash_attention"),
-        "mla_prefill": {k: mla[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library", "max_abs_err", "float32_err")}})
+        "sass": tensor_core_sass("flash_attention")})
+    for name in ("mla_prefill", *FRONTEND_PREFILLS):
+        row[name] = {k: attn[name][k] for k in keep}
     require(row["sass"]["HMMA"] + row["sass"]["HGMMA"] > 0,
             f"no tensor-core instruction in flash_attention: {row['sass']}")
     timing["flash_attention"] = row
@@ -1006,7 +1026,7 @@ def train_kernels(cases: list, timing: dict) -> None:
 
     out: dict = {"lse": [], "attention_grads": [], "scan_grads": []}
     # ---- lse: tc_prefill (bf16, > 64 rows), scalar (float32, or <= 64
-    # rows), rows that see no key, kv_len 0, and the zamba2 train shape
+    # rows), rows that see no key, kv_len 0, and zamba2's width at L 4096
     for case in [
         # (b, hq, hkv, lq, lk, d, causal, window, q_offset, kv_len)
         (1, 2, 2, 128, 128, 64, True, None, 0, None),
@@ -2307,7 +2327,20 @@ def phase_cluster(results: dict, scratch: Path) -> dict:
 # block, one MoE block) beside its MTP head's parameters: 25.5 B
 # parameters, 51 GB in bf16; a third layer would take the weights to 74 GB
 MOE_ARCH = "deepseek-v3-671b-d2"
-SERVE_ARCHS = ("h2o-danube-1.8b", "zamba2-2.7b", "falcon-mamba-7b", MOE_ARCH)
+# llava-next-34b's yi-34b backbone cut to depth 8 of 60 (5.4 B parameters,
+# 10.8 GB; all 60 would be 69 GB), kimi-k2 to depth 2 of 61, one dense and
+# one MoE block of 384 experts (20.0 B parameters, 39.9 GB; a third layer
+# adds 34 GB); musicgen-medium runs whole (1.8 B parameters)
+LLAVA_ARCH = "llava-next-34b-d8"
+KIMI_ARCH = "kimi-k2-1t-a32b-d2"
+SERVE_ARCHS = ("h2o-danube-1.8b", "zamba2-2.7b", "falcon-mamba-7b", MOE_ARCH,
+               "musicgen-medium", LLAVA_ARCH, KIMI_ARCH)
+# the registered cuts: (config module, the fields they change)
+SERVE_CUTS = {MOE_ARCH: ("deepseek_v3_671b",
+                         dict(n_layers=2, first_dense_layers=1)),
+              LLAVA_ARCH: ("llava_next_34b", dict(n_layers=8)),
+              KIMI_ARCH: ("kimi_k2_1t_a32b",
+                          dict(n_layers=2, first_dense_layers=1))}
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 2, 8192, 32
 SERVE_CP_FREQ, SERVE_FAIL_AT = 16, 20
 SERVE_TINY = False               # full-size configurations (CPU rehearsal: True)
@@ -2316,18 +2349,50 @@ TRACE_STEPS = 4                  # decode steps in each model's trace
 SERVE_KERNELS = {"h2o-danube-1.8b": ("flash_attention",),
                  "zamba2-2.7b": ("flash_attention", "ssd_scan"),
                  "falcon-mamba-7b": ("s6_scan",),
-                 MOE_ARCH: ("flash_attention",)}
+                 MOE_ARCH: ("flash_attention",),
+                 "musicgen-medium": ("flash_attention",),
+                 LLAVA_ARCH: ("flash_attention",),
+                 KIMI_ARCH: ("flash_attention",)}
 
 
-def register_moe_config() -> None:
-    """Register :data:`MOE_ARCH` (and its TINY twin at the same depth, for
-    a CPU rehearsal) with the port's registry, so ``launch.serve.run``
-    resolves it by name."""
-    from repro_torch.configs import deepseek_v3_671b as ds
+def register_serve_configs() -> None:
+    """Register the cuts of :data:`SERVE_CUTS` (each with its TINY twin at
+    the same depth, for a CPU rehearsal) with the port's registry, so
+    ``launch.serve.run`` resolves them by name."""
+    import importlib
+
     from repro_torch.configs import register_config
 
-    cut = dict(arch_id=MOE_ARCH, n_layers=2, first_dense_layers=1)
-    register_config(MOE_ARCH, ds.CONFIG.replace(**cut), ds.TINY.replace(**cut))
+    for name, (module, fields) in SERVE_CUTS.items():
+        mod = importlib.import_module(f"repro_torch.configs.{module}")
+        cut = dict(arch_id=name, **fields)
+        register_config(name, mod.CONFIG.replace(**cut),
+                        mod.TINY.replace(**cut))
+
+
+def _serve_inputs(cfg, dev):
+    """(prompts, stub embeds, first decode position) of ``serve.run``
+    for the phase's batch, on ``dev``: the prompts from
+    ``default_rng(SEED)``, the embeds None without a frontend."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import prefix_len, stub_embeds
+
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)
+    return (torch.from_numpy(prompts).to(dev),
+            stub_embeds(cfg, SERVE_BATCH, SEED, dev),
+            SERVE_PROMPT + prefix_len(cfg))
+
+
+def _attention_layers(cfg) -> int:
+    """flash_attention calls of one forward: one a transformer block,
+    zamba2's one a shared-block application, none for mamba1."""
+    if cfg.family == "hybrid":
+        return (cfg.n_layers // cfg.shared_attn_every
+                if cfg.shared_attn_every else 0)
+    return 0 if cfg.family == "ssm" else cfg.n_layers
 
 
 def _tree_bytes(tree) -> int:
@@ -2353,19 +2418,17 @@ def decode_trace(cfg, params, dev, untraced_s: float) -> dict:
     the traced wall time and of the untraced run's time a token
     (``untraced_s``), device operations a token, and the five kernels
     that take the most device time."""
-    import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.train.steps import make_decode_step, make_prefill
 
-    prompts = np.random.default_rng(SEED).integers(
-        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)
-    cache, logits = make_prefill(cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_GEN,
-                                 dev)(params, torch.from_numpy(prompts).to(dev))
+    tokens, embeds, start = _serve_inputs(cfg, dev)
+    cache, logits = make_prefill(cfg, SERVE_BATCH, start + SERVE_GEN, dev)(
+        params, tokens, embeds)
     decode = make_decode_step(cfg)
-    tok, pos = torch.argmax(logits, dim=-1).to(torch.int32), SERVE_PROMPT
+    tok, pos = torch.argmax(logits, dim=-1).to(torch.int32), start
 
     def step():                  # the serve loop's body
         nonlocal cache, tok, pos
@@ -2416,22 +2479,19 @@ def prefill_split(cfg, params, dev) -> dict:
     (one untraced first): wall and device-busy seconds, device seconds by
     kernel family (``PREFILL_FAMILIES``, the rest "other") and the six
     kernels that take the most device time."""
-    import numpy as np
-    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.train.steps import make_prefill
 
-    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
-        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)).to(dev)
-    prefill = make_prefill(cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, dev)
-    prefill(params, tokens)
+    tokens, embeds, start = _serve_inputs(cfg, dev)
+    prefill = make_prefill(cfg, SERVE_BATCH, start + SERVE_GEN, dev)
+    prefill(params, tokens, embeds)
     torch_sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        prefill(params, tokens)
+        prefill(params, tokens, embeds)
         torch_sync()
         wall = time.perf_counter() - t0
     ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -2492,7 +2552,8 @@ def serve_one(arch: str, scratch: Path) -> dict:
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated() if on_card else None
     cache_bytes = _tree_bytes(M.init_cache(
-        cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, device="meta"))
+        cfg, SERVE_BATCH, SERVE_PROMPT + serve.prefix_len(cfg) + SERVE_GEN,
+        device="meta"))
     sc = serve.ServeConfig(arch=arch, tiny=SERVE_TINY, batch=SERVE_BATCH,
                            prompt_len=SERVE_PROMPT, gen_tokens=SERVE_GEN,
                            seed=SEED, device=DEVICE, cp_name="serve")
@@ -2557,12 +2618,13 @@ def serve_one(arch: str, scratch: Path) -> dict:
                 == cfg.n_layers,
                 f"{arch}: attention routes on serve {routes}")
     else:
-        require(routes["scalar"] == 0 and routes["tc_prefill"] > 0
-                and routes["split_decode"] > 0
-                and routes["tc_prefill"] + routes["split_decode"]
-                == launches["flash_attention"],
-                f"{arch}: attention routes on serve {routes}")
-    out = {"arch": arch, "params": sum(
+        n_attn = _attention_layers(cfg)
+        require(routes == {"tc_prefill": n_attn,
+                           "split_decode": n_attn * SERVE_GEN, "scalar": 0}
+                and launches["flash_attention"] == n_attn * (1 + SERVE_GEN),
+                f"{arch}: attention routes on serve {routes} (one a layer "
+                f"of {n_attn} and a pass)")
+    out = {"arch": arch, "prefix": serve.prefix_len(cfg), "params": sum(
         t.numel() for t in torch.utils._pytree.tree_leaves(params)),
            "param_bytes": _tree_bytes(params),
            "init_s": init_s, "init_peak_device_bytes": init_peak,
@@ -2604,7 +2666,7 @@ def phase_serve(results: dict, scratch: Path) -> dict:
     from repro_torch.core import metrics
 
     metrics.install()
-    register_moe_config()
+    register_serve_configs()
     _reset_counts()
     models = [serve_one(arch, scratch) for arch in SERVE_ARCHS]
     launches, routes = _counts(), _attn_routes()
@@ -2621,8 +2683,10 @@ def phase_serve(results: dict, scratch: Path) -> dict:
 # ---------------------------------------------------------------- train
 TRAIN_TINY = False               # full-size configurations (CPU rehearsal: True)
 TRAIN_BATCH = 2
-ZAMBA_SEQ, FALCON_SEQ = 4096, 2048
-TRAIN_STEPS, TRAIN_CP_FREQ, TRAIN_FAIL_AT = 6, 3, 5
+# zamba2 cut from L 4096 and 6 steps to L 2048 and 4 steps when the serve
+# phase took seven models: the smoke's phases must stay within 1000 s
+ZAMBA_SEQ, FALCON_SEQ = 2048, 2048
+TRAIN_STEPS, TRAIN_CP_FREQ, TRAIN_FAIL_AT = 4, 2, 3
 FALCON_STEPS, FALCON_LR = 3, 1e-4
 TRAIN_TIMEOUT_S = 700            # the child's limit
 # kernel families of a traced train step: the plain backwards and the
@@ -3175,8 +3239,8 @@ def main(argv=None) -> int:
                           k["name"]],
                       "control_launches": results["control_launches"][
                           k["name"]],
-                      **({"mla_prefill": t["mla_prefill"]}
-                         if "mla_prefill" in t else {})})
+                      **{n: t[n] for n in ("mla_prefill",
+                                           *FRONTEND_PREFILLS) if n in t}})
     emit({"phase_wall_s": wall, "total_wall_s": sum(wall.values())})
     emit({"kernels": table})
     print(card_line(), flush=True)

@@ -42,6 +42,24 @@ class ServeConfig:
     device: str = "cuda"
 
 
+def prefix_len(cfg) -> int:
+    """Positions the modality frontend's stub takes before the prompt."""
+    return cfg.n_patches if cfg.frontend else 0
+
+
+def stub_embeds(cfg, batch: int, seed: int,
+                device) -> Optional[torch.Tensor]:
+    """The modality frontend's stub, as the reference's ``serve`` builds it:
+    ``(batch, n_patches, d_model)`` standard normals from
+    ``np.random.default_rng(seed + 1)``, in ``cfg.dtype`` on ``device``;
+    None for a model without a frontend."""
+    if not cfg.frontend:
+        return None
+    stub = np.random.default_rng(seed + 1).standard_normal(
+        (batch, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return torch.from_numpy(stub).to(device=device, dtype=cfg.dtype)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -57,6 +75,11 @@ def run(sc: ServeConfig, comm=None, env=None, params=None,
     checkpoint written), "logits_finite" (every logit of the run was
     finite) and "last_logits" (the final step's (B, V) logits, float32
     numpy).  ``fail_at_token`` raises after that many generated tokens.
+
+    A model with a modality frontend (``cfg.frontend``) prefills the
+    reference's stub (:func:`stub_embeds`) before the prompt, so its
+    decode positions start at ``prompt_len + n_patches``; a resumed run
+    rebuilds the same stub, since the prefill runs before the restore.
 
     Greedy decoding (``temperature == 0``) matches the reference.  With
     ``temperature > 0`` each token is drawn by ``torch.multinomial`` from a
@@ -74,17 +97,20 @@ def run(sc: ServeConfig, comm=None, env=None, params=None,
     if params is None:
         gen = torch.Generator(device=device).manual_seed(sc.seed)
         params = M.init_params(gen, cfg, device)
-    max_len = sc.prompt_len + sc.gen_tokens
+    prefix = prefix_len(cfg)
+    max_len = sc.prompt_len + sc.gen_tokens + prefix
     rng = np.random.default_rng(sc.seed)
     prompts = rng.integers(0, cfg.vocab, (sc.batch, sc.prompt_len),
                            dtype=np.int32)
+    embeds = stub_embeds(cfg, sc.batch, sc.seed, device)
 
     prefill = make_prefill(cfg, sc.batch, max_len, device)
     decode = make_decode_step(cfg)
 
     t0 = time.perf_counter()
-    cache, logits = prefill(params, torch.from_numpy(prompts).to(device))
-    pos0 = sc.prompt_len
+    cache, logits = prefill(params, torch.from_numpy(prompts).to(device),
+                            embeds)
+    pos0 = sc.prompt_len + prefix
     _sync(device)
     prefill_s = time.perf_counter() - t0
     finite = torch.isfinite(logits).all()

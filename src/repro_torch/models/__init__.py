@@ -2,9 +2,9 @@
 as plain functions on tensors.
 
 Parameters are the reference's nested dict with the same keys and the same
-layer-stacked layout, so one tree serves both packages.  This slice covers
-the serving (forward) path of the ``dense``, ``ssm`` and ``hybrid``
-families with GQA attention; MLA, MoE and the modality frontends come in a
-later slice.
+layer-stacked layout, so one tree serves both packages.  Every family of
+the reference is here: ``dense``, ``moe`` (GQA or MLA attention, the MTP
+head), ``ssm``, ``hybrid`` and the modality frontends ``audio`` and
+``vlm``, whose stub embeddings go before the tokens.
 """
 from repro_torch.models.common import ModelConfig  # noqa: F401

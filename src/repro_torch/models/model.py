@@ -2,15 +2,16 @@
 reference's ``repro/models/model.py``).
 
 Families of the port
-  * dense  — transformer blocks (GQA, optional sliding window),
+  * dense / audio / vlm — transformer blocks (GQA, optional sliding
+    window); the modality frontends are the reference's stubs: ``embeds``
+    (B, P, D), precomputed frame or patch embeddings, go before the token
+    embeddings and take positions 0 … P-1,
   * moe    — ``first_dense_layers`` dense blocks, then MoE blocks (GQA or
     MLA attention), and deepseek's multi-token-prediction head
     (``cfg.mtp``: :func:`mtp_hidden`, used by the training loss),
   * ssm    — mamba1/mamba2 blocks (attention-free),
   * hybrid — zamba2: groups of ``shared_attn_every`` mamba2 blocks with ONE
     weight-shared transformer block applied between groups.
-The modality frontends (``audio``, ``vlm``) come with a later slice of the
-port and raise here.
 
 Parameters keep the reference's tree and layer-stacked layout: ``blocks``
 (and the moe family's ``dense_blocks``) leaves are ``(n_layers, ...)``;
@@ -47,15 +48,13 @@ from repro_torch.models.layers import (
     unembed_apply,
 )
 
-SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+SERVED_FAMILIES = ("dense", "audio", "vlm", "moe", "ssm", "hybrid")
+DENSE_FAMILIES = ("dense", "audio", "vlm")
 
 
 def _served(cfg: ModelConfig) -> None:
-    if cfg.family not in SERVED_FAMILIES or cfg.frontend:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.arch_id}) is not ported yet: "
-            "modality frontends come with the frontends slice of the port "
-            "(ROADMAP.md)")
+    if cfg.family not in SERVED_FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.arch_id})")
 
 
 def _layer_slice(tree, i: int):
@@ -85,7 +84,7 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
     ini = Init(gen, device)
     params = {"embed": embed_init(ini, cfg),
               "final_ln": ini.full((cfg.d_model,), 1.0, cfg.dtype)}
-    if cfg.family == "dense":
+    if cfg.family in DENSE_FAMILIES:
         params["blocks"] = stack_init(
             lambda i: blk.tblock_init(i, cfg), ini, cfg.n_layers)
     elif cfg.family == "moe":
@@ -131,7 +130,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda"):
     _served(cfg)
     dtype = dtype or cfg.dtype
-    if cfg.family == "dense":
+    if cfg.family in DENSE_FAMILIES:
         proto = blk.tblock_cache_init(cfg, batch, max_len, dtype, "meta")
         return {"layers": _stack_cache(proto, cfg.n_layers, device)}
     if cfg.family == "moe":
@@ -193,11 +192,11 @@ def forward_hidden(
     params,
     cfg: ModelConfig,
     tokens: Optional[torch.Tensor] = None,     # (B, L) integer
-    embeds: Optional[torch.Tensor] = None,
+    embeds: Optional[torch.Tensor] = None,     # (B, P, D) modality stub
     cache=None,
     pos0=None,                                 # host integer offset
 ) -> Tuple[torch.Tensor, Optional[dict], float]:
-    """Returns (final hidden (B, L, D), new_cache, aux_loss).
+    """Returns (final hidden (B, P + L, D), new_cache, aux_loss).
 
     The unembed projection is not applied: serving unembeds only the
     positions it needs.  ``cache`` is updated in place and returned.  The
@@ -205,10 +204,12 @@ def forward_hidden(
     families).
     """
     _served(cfg)
+    parts = []
     if embeds is not None:
-        raise NotImplementedError("modality embeds come with the frontends "
-                                  "slice of the port (ROADMAP.md)")
-    x = embed_apply(params["embed"], tokens)
+        parts.append(embeds.to(cfg.dtype))
+    if tokens is not None:
+        parts.append(embed_apply(params["embed"], tokens))
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     l = x.shape[1]
     pos0 = 0 if pos0 is None else int(pos0)
     positions = torch.arange(l, device=x.device) + pos0
@@ -235,7 +236,7 @@ def forward_hidden(
         aux = aux + a
     else:
         caches = cache["layers"] if cache is not None else None
-        fn = t_apply if cfg.family == "dense" else s_apply
+        fn = t_apply if cfg.family in DENSE_FAMILIES else s_apply
         x, aux = _run_stack(fn, params["blocks"], x, cfg, caches)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return x, cache, aux

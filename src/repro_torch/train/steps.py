@@ -139,9 +139,20 @@ def _loss_fn(params, cfg: ModelConfig, scfg: TrainStepConfig, batch):
     """(total loss, {"loss", "aux"}) of one batch."""
     tokens = batch["tokens"]
     labels = batch["labels"]
-    hidden, _, aux = M.forward_hidden(
-        params, cfg, tokens=tokens, embeds=batch.get("embeds"))
+    embeds = batch.get("embeds")
+    if cfg.mtp and embeds is not None:
+        # the reference builds the MTP input P + L long and the next-token
+        # embeddings L long, and cannot concatenate them: no config has both
+        raise ValueError(f"{cfg.arch_id}: the MTP head takes no embeds "
+                         "prefix")
+    hidden, _, aux = M.forward_hidden(params, cfg, tokens=tokens,
+                                      embeds=embeds)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=hidden.device)
+    if embeds is not None:
+        # the modality-stub positions carry no next-token loss
+        labels = torch.cat([torch.full(
+            embeds.shape[:2], IGNORE, dtype=labels.dtype,
+            device=labels.device), labels], dim=1)
 
     def unembed_fn(h):
         return M.unembed(params, cfg, h)
@@ -228,7 +239,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimConfig,
 def make_prefill(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     """prefill(params, tokens, [embeds]) -> (cache, last_logits).
 
-    Only the final position is unembedded — the (B, L, V) prompt logits
+    ``max_len`` is the cache's length: it counts an ``embeds`` prefix's P
+    positions beside the prompt and the generated tokens.  Only the final
+    position is unembedded — the (B, L, V) prompt logits
     tensor is never materialized.
     """
 

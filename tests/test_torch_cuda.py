@@ -184,6 +184,21 @@ FLASH_CASES = [
     (1, 1, 1, 64, 200, 64, True, 16, 100, None, "split_decode"),   # a split
     (1, 2, 1, 1, 64, 64, False, None, 0, 0, "split_decode"),       # no key
     (1, 4, 1, 16, 600, 128, True, 300, 580, None, "split_decode"),  # 64 rows
+    # the frontend models' and kimi's instances: musicgen's D 64 at group
+    # 1, llava's group 7 and kimi's group 8 at D 128, over a prefix plus a
+    # ragged 211 (Lq not a multiple of the 128-row tile); decode rows
+    # (Lq x group) of 1, 7 (the last row group padded) and 8 at both dims
+    (1, 4, 4, 64 + 211, 64 + 211, 64, True, None, 0, None, "prefill"),
+    (1, 14, 2, 1152 + 211, 1152 + 211, 128, True, None, 0, None,
+     "prefill"),
+    (1, 16, 2, 1152 + 211, 1152 + 211, 128, True, None, 0, None,
+     "prefill"),
+    (2, 24, 24, 1, 8257, 64, True, None, 8256, 8257, "split_decode"),
+    (1, 8, 8, 1, 8257, 128, True, None, 8256, 8257, "split_decode"),
+    (1, 14, 2, 1, 9376, 64, True, None, 9375, 9376, "split_decode"),
+    (2, 56, 8, 1, 9376, 128, True, None, 9375, 9376, "split_decode"),
+    (1, 16, 2, 1, 8257, 64, True, None, 8256, 8257, "split_decode"),
+    (2, 64, 8, 1, 8224, 128, True, None, 8223, 8224, "split_decode"),
 ]
 
 
@@ -447,9 +462,11 @@ def test_chunked_scan_takes_unaligned_views(cuda):
 
 @pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "zamba2-2.7b",
                                   "falcon-mamba-7b", "deepseek-v3-671b",
-                                  "kimi-k2-1t-a32b"])
+                                  "kimi-k2-1t-a32b", "musicgen-medium",
+                                  "llava-next-34b"])
 def test_tiny_serve_on_the_card_equals_cpu(cuda, arch):
-    """float32 TINY serve: the card's greedy tokens equal the CPU's."""
+    """float32 TINY serve: the card's greedy tokens equal the CPU's (the
+    frontend models after their stub prefix)."""
     name = f"{arch}-tiny-f32-card"
     tiny = get_config(arch, tiny=True).replace(param_dtype="float32")
     register_config(name, tiny, tiny)
@@ -467,7 +484,8 @@ def test_tiny_serve_on_the_card_equals_cpu(cuda, arch):
     np.testing.assert_array_equal(card["tokens"], cpu["tokens"])
     used = {"h2o-danube-1.8b": (0,), "zamba2-2.7b": (0, 1),
             "falcon-mamba-7b": (2,), "deepseek-v3-671b": (0,),
-            "kimi-k2-1t-a32b": (0,)}[arch]
+            "kimi-k2-1t-a32b": (0,), "musicgen-medium": (0,),
+            "llava-next-34b": (0,)}[arch]
     for i in used:
         assert after[i] > before[i]
 

@@ -2,13 +2,15 @@
 
 For h2o-danube-1.8b (dense GQA, sliding window), zamba2-2.7b (hybrid
 mamba2 + shared attention), falcon-mamba-7b (mamba1), deepseek-v3-671b
-(MoE with MLA attention and an MTP head) and kimi-k2-1t-a32b (MoE with
-GQA), at their TINY sizes, the reference's ``init_params`` weights are
-carried into the port (numpy → ``convert.params_from_numpy``) and the same
-seeded tokens go through ``forward``, ``make_prefill`` and
-``make_decode_step`` of both packages.  The prompt (40) is longer than
-TINY danube's window (32), so the prefill masks by window and decode
-writes the rolling slots.
+(MoE with MLA attention and an MTP head), kimi-k2-1t-a32b (MoE with GQA),
+musicgen-medium (audio: MHA over a 64-frame prefix) and llava-next-34b
+(vlm: GQA over an 8-patch prefix), at their TINY sizes, the reference's
+``init_params`` weights are carried into the port (numpy →
+``convert.params_from_numpy``) and the same seeded tokens go through
+``forward``, ``make_prefill`` and ``make_decode_step`` of both packages;
+the two frontend models get one numpy-seeded ``embeds`` prefix in both.
+The prompt (40) is longer than TINY danube's window (32), so the prefill
+masks by window and decode writes the rolling slots.
 
 Tolerances: float32 2e-4 on logits and cache values (the same math summed
 in another order); bfloat16 0.15, the reference's own bound for its models
@@ -38,7 +40,9 @@ from repro_torch.models import model as M
 from repro_torch.train import steps as S
 
 ARCHS = ["h2o-danube-1.8b", "zamba2-2.7b", "falcon-mamba-7b",
-         "deepseek-v3-671b", "kimi-k2-1t-a32b"]
+         "deepseek-v3-671b", "kimi-k2-1t-a32b", "musicgen-medium",
+         "llava-next-34b"]
+FRONTENDS = ["musicgen-medium", "llava-next-34b"]
 DTYPES = ["float32", "bfloat16"]
 # (arch, dtype) of the end-to-end comparisons: see the module docstring
 CASES = [(a, d) for a in ARCHS for d in DTYPES
@@ -65,22 +69,39 @@ def _setup(arch: str, dtype: str):
     return rcfg, cfg, rparams, params, tokens
 
 
+def _embeds(cfg):
+    """The frontend models' prefix (B, P, D) float32 numpy, else None."""
+    if not cfg.frontend:
+        return None
+    return np.random.default_rng(5).standard_normal(
+        (B, cfg.n_patches, cfg.d_model)).astype(np.float32)
+
+
+def _both(x):
+    """(reference's, port's) of a numpy array or None."""
+    return (None, None) if x is None else (jnp.asarray(x),
+                                           torch.from_numpy(x))
+
+
 @functools.lru_cache(maxsize=None)
 def _serve_both(arch: str, dtype: str):
-    """Prefill + GEN decode steps in both packages, each fed the
-    reference's greedy tokens: (per-step logits pairs, final caches)."""
+    """Prefill (after the prefix, for a frontend model) + GEN decode steps
+    in both packages, each fed the reference's greedy tokens: (per-step
+    logits pairs, final caches)."""
     rcfg, cfg, rparams, params, tokens = _setup(arch, dtype)
-    rcache, rlog = jax.jit(RS.make_prefill(rcfg, B, PROMPT + GEN))(
-        rparams, jnp.asarray(tokens))
-    cache, log = S.make_prefill(cfg, B, PROMPT + GEN, "cpu")(
-        params, torch.from_numpy(tokens))
+    remb, emb = _both(_embeds(cfg))
+    start = PROMPT + (cfg.n_patches if cfg.frontend else 0)
+    rcache, rlog = jax.jit(RS.make_prefill(rcfg, B, start + GEN))(
+        rparams, jnp.asarray(tokens), remb)
+    cache, log = S.make_prefill(cfg, B, start + GEN, "cpu")(
+        params, torch.from_numpy(tokens), emb)
     steps = [(rlog, log)]
     rdec, dec = jax.jit(RS.make_decode_step(rcfg)), S.make_decode_step(cfg)
     for i in range(GEN):
         nxt = np.array(jnp.argmax(rlog, -1), np.int32)[:, None]
         rcache, rlog = rdec(rparams, rcache, jnp.asarray(nxt),
-                            jnp.int32(PROMPT + i))
-        cache, log = dec(params, cache, torch.from_numpy(nxt), PROMPT + i)
+                            jnp.int32(start + i))
+        cache, log = dec(params, cache, torch.from_numpy(nxt), start + i)
         steps.append((rlog, log))
     return steps, rcache, cache
 
@@ -129,10 +150,14 @@ def test_params_from_numpy_refuses_a_mismatch():
 @pytest.mark.parametrize("arch,dtype", CASES)
 def test_forward_matches_reference(arch, dtype):
     rcfg, cfg, rparams, params, tokens = _setup(arch, dtype)
-    want, _, _ = RM.forward(rparams, rcfg, tokens=jnp.asarray(tokens))
-    got, cache, _ = M.forward(params, cfg, tokens=torch.from_numpy(tokens))
+    remb, emb = _both(_embeds(cfg))
+    want, _, _ = RM.forward(rparams, rcfg, tokens=jnp.asarray(tokens),
+                            embeds=remb)
+    got, cache, _ = M.forward(params, cfg, tokens=torch.from_numpy(tokens),
+                              embeds=emb)
     assert cache is None and got.dtype == torch.float32
-    assert got.shape == (B, PROMPT, cfg.vocab)
+    prefix = cfg.n_patches if cfg.frontend else 0
+    assert got.shape == (B, prefix + PROMPT, cfg.vocab)
     np.testing.assert_allclose(_np(got), _np(want), rtol=TOL[dtype],
                                atol=TOL[dtype])
 
@@ -162,7 +187,8 @@ def test_decode_cache_matches_reference(arch, dtype):
         else:
             np.testing.assert_allclose(_np(t), _np(r), rtol=TOL[dtype],
                                        atol=TOL[dtype])
-    assert int(cache["layers"]["pos"][0]) == PROMPT + GEN
+    prefix = get_config(arch, tiny=True).n_patches
+    assert int(cache["layers"]["pos"][0]) == PROMPT + GEN + prefix
 
 
 def test_rolling_window_cache_holds_the_newest_positions():
@@ -174,13 +200,34 @@ def test_rolling_window_cache_holds_the_newest_positions():
     assert bool((k.abs().sum(-1) > 0).all())
 
 
-@pytest.mark.parametrize("arch", ["musicgen-medium", "llava-next-34b"])
-def test_later_slices_raise(arch):
+@pytest.mark.parametrize("arch", FRONTENDS)
+def test_modality_stub_prefix(arch):
+    """tests/test_models.py's case on the port: the audio and vlm
+    backbones take precomputed frame / patch embeddings before the tokens
+    (bf16 TINY, the port's own random weights)."""
     cfg = get_config(arch, tiny=True)
-    with pytest.raises(NotImplementedError, match="slice"):
-        M.init_params(None, cfg, "meta")
-    with pytest.raises(NotImplementedError, match="slice"):
-        M.init_cache(cfg, 1, 8, device="meta")
+    assert cfg.frontend and cfg.n_patches > 0
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    b, l = 2, 12
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (b, l), dtype=np.int32))
+    embeds = torch.randn((b, cfg.n_patches, cfg.d_model),
+                         generator=torch.Generator().manual_seed(1))
+    logits, _, _ = M.forward(params, cfg, tokens=toks, embeds=embeds)
+    assert logits.shape == (b, cfg.n_patches + l, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("arch", FRONTENDS)
+def test_embeds_alone_match_reference(arch):
+    """A prefix with no tokens: the logits of the P stub positions."""
+    rcfg, cfg, rparams, params, _ = _setup(arch, "float32")
+    remb, emb = _both(_embeds(cfg))
+    want, _, _ = RM.forward(rparams, rcfg, embeds=remb)
+    got, _, _ = M.forward(params, cfg, embeds=emb)
+    assert got.shape == (B, cfg.n_patches, cfg.vocab)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=TOL["float32"],
+                               atol=TOL["float32"])
 
 
 def test_init_params_is_seeded():

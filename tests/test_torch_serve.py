@@ -8,7 +8,10 @@ from ``np.random.default_rng(seed)``).  Greedy tokens must be identical.
 A decode checkpoint (cache, generated tokens, position) written by either
 package when a run fails mid-generation resumes in the other with the same
 ``resumed_at`` and the same tokens.  deepseek's MLA decodes on both of the
-reference's routes (``mla_absorb`` True, the default, and False).
+reference's routes (``mla_absorb`` True, the default, and False).  The
+audio and vlm models prefill the stub prefix both ``run``s build
+(``np.random.default_rng(seed + 1)``) before the prompt, and a resumed run
+rebuilds it.
 """
 import dataclasses
 import functools
@@ -34,7 +37,8 @@ from repro_torch.core import CraftEnv
 from repro_torch.launch import serve
 
 ARCHS = ["h2o-danube-1.8b", "zamba2-2.7b", "falcon-mamba-7b",
-         "deepseek-v3-671b", "kimi-k2-1t-a32b"]
+         "deepseek-v3-671b", "kimi-k2-1t-a32b", "musicgen-medium",
+         "llava-next-34b"]
 GEN, CP_FREQ, FAIL_AT = 8, 4, 6
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -4,9 +4,11 @@ The same seeded numpy inputs go through both packages: the synthetic
 data pipeline (bit for bit), the learning-rate schedule, the int8 moment
 codec and AdamW (32-bit and 8-bit moments, with and without the float32
 master copy), the cross entropies, and the loss and gradients of the TINY
-dense (h2o-danube-1.8b), ssm (falcon-mamba-7b), hybrid (zamba2-2.7b) and
+dense (h2o-danube-1.8b), ssm (falcon-mamba-7b), hybrid (zamba2-2.7b),
 moe (deepseek-v3-671b: MLA, MoE aux and the MTP head; kimi-k2-1t-a32b:
-GQA and MoE aux) models on the reference's ``init_params`` weights, through
+GQA and MoE aux), audio (musicgen-medium) and vlm (llava-next-34b; both
+with a seeded ``embeds`` prefix whose labels are padded with IGNORE)
+models on the reference's ``init_params`` weights, through
 ``jax.value_and_grad(repro.train.steps._loss_fn)`` and the port's
 autograd (its kernels' plain versions forward, the same backward code the
 card runs).  The reference's train step runs without a mesh, as
@@ -40,7 +42,8 @@ from repro_torch.optim import adamw as A
 from repro_torch.train import steps as S
 
 ARCHS = ["h2o-danube-1.8b", "zamba2-2.7b", "falcon-mamba-7b",
-         "deepseek-v3-671b", "kimi-k2-1t-a32b"]
+         "deepseek-v3-671b", "kimi-k2-1t-a32b", "musicgen-medium",
+         "llava-next-34b"]
 
 
 def _np(x) -> np.ndarray:
@@ -241,7 +244,11 @@ def _setup(arch: str, dtype: str = "float32"):
                                                dtype=np.int32)
     labels = np.roll(tokens, -1, axis=1)
     labels[:, -3:] = RS.IGNORE
-    return rcfg, cfg, np_params, {"tokens": tokens, "labels": labels}
+    batch = {"tokens": tokens, "labels": labels}
+    if cfg.frontend:
+        batch["embeds"] = np.random.default_rng(5).standard_normal(
+            (2, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return rcfg, cfg, np_params, batch
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -339,14 +346,16 @@ def test_bf16_train_steps_lower_the_loss(arch):
     assert losses[-1] < losses[0]
 
 
-@pytest.mark.parametrize("arch", ["llava-next-34b", "musicgen-medium"])
-def test_later_slices_raise(arch):
-    """The modality frontends come with a later slice."""
-    cfg = get_config(arch, tiny=True)
-    with pytest.raises(NotImplementedError):
-        M.init_params(None, cfg, "meta")
-    step = S.make_train_step(cfg, A.OptimConfig())
-    tokens = np.zeros((1, 4), np.int32)
-    with pytest.raises(NotImplementedError):
-        step({"embed": {"embedding": torch.zeros(cfg.vocab, 4)}}, {},
-             {"tokens": tokens, "labels": tokens})
+def test_mtp_with_embeds_raises():
+    """The reference cannot run the MTP head after an embeds prefix (its
+    MTP input is P + L long, the next-token embeddings L long); no config
+    has both, and the port refuses the pair plainly."""
+    cfg = get_config("deepseek-v3-671b", tiny=True).replace(n_patches=4)
+    assert cfg.mtp
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    tokens = np.zeros((1, 8), np.int32)
+    batch = {"tokens": torch.from_numpy(tokens),
+             "labels": torch.from_numpy(tokens),
+             "embeds": torch.zeros((1, 4, cfg.d_model))}
+    with pytest.raises(ValueError, match="MTP"):
+        S._loss_fn(params, cfg, S.TrainStepConfig(), batch)

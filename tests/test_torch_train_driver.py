@@ -64,6 +64,19 @@ def test_loss_goes_down(tmp_path):
     assert [s for s, _ in out["cp_writes"]] == [8, 16]
 
 
+@pytest.mark.parametrize("arch", ["musicgen-medium", "llava-next-34b"])
+def test_frontend_models_train_on_tokens(arch, tmp_path):
+    """The reference's ``launch.train`` feeds the audio and vlm models no
+    embeds: they train on tokens alone, as here, where the loss goes
+    down."""
+    tc = train.TrainConfig(arch=arch, device="cpu", global_batch=4,
+                           seq_len=32, steps=12, cp_freq=6, lr=1e-3)
+    out = train.run(tc, env=_env(tmp_path / "pfs"))
+    assert out["final_step"] == 12 and np.isfinite(out["losses"]).all()
+    assert np.mean(out["losses"][-3:]) < np.mean(out["losses"][:3])
+    assert [s for s, _ in out["cp_writes"]] == [6, 12]
+
+
 def test_restart_resumes_and_matches(tmp_path):
     """Interrupted at step 12 (after the version of step 10) and resumed:
     the resumed run restarts at 10 and ends bit for bit where the
