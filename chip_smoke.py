@@ -119,8 +119,23 @@ Phases, each printing one JSON line:
    per-rank iteration ms, Table 3's recovery phases, the replacement's
    spawn-to-hello seconds, Fig. 8's overheads, per-rank peak device bytes
    and the card's least free memory.
+8b. mesh — the sharding layer: (b) h2o-danube-1.8b's parameters at full
+   width (3,662,402,560 bytes) as DTensors on a (2, 2) ("data", "model")
+   mesh over 4 worker processes sharing the card (a gloo group: NCCL
+   refuses two ranks on one device), written to the PFS with the device
+   snapshot, then restored on ``shrink_mesh(2, model_parallel=2)`` over 2
+   fresh processes (``repro_torch.examples.elastic_restore``): every
+   rank's local shard torch.equal to the seeded global state's slice,
+   snapshot launched in the writers and checksum in the readers; (c) one
+   full-size dry-run cell, h2o-danube-1.8b x train_4k on the 16 x 16
+   production mesh (a fake process group of 256 ranks, fake tensors) in
+   its own process with its own time limit: per-device bytes, fits_80GB,
+   the three roofline terms on the H100's constants and model / traced
+   FLOPs; it runs on the host beside (b).  Each part's seconds.  (a),
+   the one-rank mesh, is in the train phase.
 9. serve — ``repro_torch.launch.serve.run`` on h2o-danube-1.8b,
-   zamba2-2.7b, falcon-mamba-7b, deepseek-v3-671b, musicgen-medium,
+   zamba2-2.7b, falcon-mamba-7b, deepseek-v3-671b, musicgen-medium (cut
+   to depth 24 of 48, ``musicgen-medium-d24``),
    llava-next-34b and kimi-k2-1t-a32b at full width (their CONFIGs;
    deepseek cut to depth 2, one dense and one MoE block beside its MTP
    head's parameters, registered as ``deepseek-v3-671b-d2``; llava cut to
@@ -143,13 +158,15 @@ Phases, each printing one JSON line:
    idle share) and of one prefill (device seconds by kernel family).
 10. train — in a child process (``--phases train-child``, with
    CUBLAS_WORKSPACE_CONFIG=:4096:8 and deterministic algorithms): zamba2-2.7b
-   at full width through ``repro_torch.launch.train.run``, bf16, B 2 x L
-   2048, seeded random weights, AdamW with 32-bit moments, per-block remat:
-   a run checkpointing every 2 steps (CRAFT_TIER_CHAIN=pfs,
-   CRAFT_DEVICE_SNAPSHOT=1, CRAFT_KEEP_VERSIONS=1; 23.4 GB a version) cut
-   after step 3, the resumed run (restart at 2, end at 4) and an
-   uninterrupted 4-step run: losses 3-4, parameters and optimizer state
-   torch.equal; every attention call on tc_prefill and every scan call
+   at full width, cut to depth 24 of 54 (``zamba2-2.7b-d24``), through
+   ``repro_torch.launch.train.run``, bf16, B 2 x L 2048,
+   seeded random weights, AdamW with 32-bit moments, per-block remat: a
+   run checkpointing every 2 steps (CRAFT_TIER_CHAIN=pfs,
+   CRAFT_DEVICE_SNAPSHOT=1, CRAFT_KEEP_VERSIONS=1; about 11 GB a version) cut
+   after step 3, the resumed run (restart at 2, end at 4), both on a
+   one-rank (1, 1) NCCL mesh (DTensor state under the sharding rules, the
+   hand kernels through ``local_map``), and an uninterrupted mesh-free
+   4-step run: losses 3-4, parameters and optimizer state torch.equal; every attention call on tc_prefill and every scan call
    chunked, twice a block and step (remat); checksum and snapshot launched.
    A traced train step splits its device time by family (hand forward
    kernels, attention and scan backwards, cuBLAS matmuls, optimizer,
@@ -160,10 +177,10 @@ Phases, each printing one JSON line:
 
 Each phase's line carries its wall seconds (``wall_s``), and a line before
 the kernel table sums them.
-Each path phase (main, control, redundancy, aft, lanczos, cluster, serve,
-train) sets
+Each path phase (main, control, redundancy, aft, lanczos, cluster, mesh,
+serve, train) sets
 the kernels' launch counts to 0 before it runs and reads them after (the
-cluster phase adds the counts its worker processes report).  Then the
+cluster and mesh phases add the counts their worker processes report).  Then the
 kernel table (JSON), the card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that line; so does a machine without a CUDA card, or a directory without
@@ -399,8 +416,68 @@ def phase_kernels(results: dict) -> dict:
     parity_kernels(cases, timing, rand_words)
     lm_kernels(cases, timing)
     train_kernels(cases, timing)
+    dispatch = dispatch_cost()
     results["timing"] = timing
-    return {"phase": "kernels", "cases": cases, "timing": timing}
+    return {"phase": "kernels", "cases": cases, "timing": timing,
+            "dispatch_us": dispatch}
+
+
+def dispatch_cost(calls: int = 200, rounds: int = 5) -> dict:
+    """Host microseconds a call at the decode shapes of h2o-danube-1.8b
+    (attention: q (2, 32, 1, 80) over a (2, 8, 8224, 80) bf16 cache) and
+    zamba2-2.7b (the scan: one step of (2, 80, 64) heads, state 64): the
+    public op (``attention``, ``selective_scan``: the custom op, then the
+    kernel) and the kernel's wrapper called directly: ``host``, the time
+    to issue a call, and ``wall``, to its end on the card.  The difference
+    of the hosts' is the custom op's dispatch, paid once a layer and token.
+    Medians of ``rounds`` rounds of ``calls`` calls, each round ended by a
+    sync."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda,
+    )
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+    from repro_torch.kernels.ssm_scan.kernel import ssd_scan_cuda
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    q, k, v = randn(2, 32, 1, 80), randn(2, 8, 8224, 80), randn(2, 8, 8224,
+                                                              80)
+    kw = dict(causal=True, q_offset=8200, kv_len=8201)
+    scan = (randn(2, 1, 80, 64), randn(2, 1, 80, 64), randn(2, 1, 80, 64),
+            torch.rand((2, 1, 80), generator=g, device=dev) * 0.5,
+            -(0.5 + torch.rand((80,), generator=g, device=dev)),
+            randn(2, 80, 64, 64, dtype=torch.float32))
+    fns = {"attention_op": lambda: fa_ops.attention(q, k, v, **kw),
+           "attention_wrapper": lambda: flash_attention_cuda(q, k, v, **kw),
+           "scan_op": lambda: scan_ops.selective_scan(*scan),
+           "scan_wrapper": lambda: ssd_scan_cuda(*scan)}
+    out = {}
+    with torch.no_grad():
+        for name, fn in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            host, wall = [], []
+            for _ in range(rounds):
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                host.append((t1 - t0) / calls * 1e6)
+                wall.append((time.perf_counter() - t0) / calls * 1e6)
+            out[name] = {"host": statistics.median(host),
+                         "wall": statistics.median(wall)}
+    for op in ("attention", "scan"):
+        out[f"{op}_dispatch_host"] = (out[f"{op}_op"]["host"]
+                                      - out[f"{op}_wrapper"]["host"])
+    return out
 
 
 def gf_ops(matrix) -> int:
@@ -2322,6 +2399,145 @@ def phase_cluster(results: dict, scratch: Path) -> dict:
             "bit_exact": True}
 
 
+# ---------------------------------------------------------------- mesh
+MESH_TINY = False                # full-size configurations (CPU rehearsal: True)
+MESH_ARCH = "h2o-danube-1.8b"
+MESH_WRITE = (2, 2)              # the writers' ("data", "model") mesh
+MESH_SURVIVORS = 2               # restored on shrink_mesh(2, model_parallel=2)
+MESH_TIMEOUT_S = 300             # each Cluster's limit
+DRYRUN_CELL = ("h2o-danube-1.8b", "train_4k")   # on the 16 x 16 fake mesh
+DRYRUN_TIMEOUT_S = 300           # the dry-run subprocess's limit
+
+
+def mesh_elastic(scratch: Path) -> dict:
+    """h2o-danube-1.8b's parameters as DTensors on a (2, 2) mesh over 4
+    worker processes sharing the card (gloo), written with the device
+    snapshot; restored on ``shrink_mesh(2, model_parallel=2)`` over 2
+    fresh processes, every local shard torch.equal to the seeded global
+    state's slice (``examples.elastic_restore``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples.elastic_restore import elastic_restore
+    from repro_torch.models import model as M
+
+    cfg = get_config(MESH_ARCH, tiny=MESH_TINY)
+    shapes = M.init_params(None, cfg, "meta")
+    param_bytes = _tree_bytes(shapes)
+    _free_host_cache()
+    out = elastic_restore(scratch, MESH_ARCH, tiny=MESH_TINY, device=DEVICE,
+                          write_mesh=MESH_WRITE, survivors=MESH_SURVIVORS,
+                          model_parallel=2, seed=SEED, snapshot=True,
+                          timeout=MESH_TIMEOUT_S)
+    orphans = _worker_orphans()
+    require(not orphans, f"mesh: workers outlived their Cluster: {orphans}")
+    readers, writers = out["readers"], out["writers"]
+    require(len(writers) == MESH_WRITE[0] * MESH_WRITE[1]
+            and len(readers) == MESH_SURVIVORS,
+            f"mesh: {len(writers)} writers, {len(readers)} readers")
+    require(all(r["mesh"] == (1, 2) and r["restored"] for r in readers),
+            f"mesh: readers {[(r['mesh'], r['restored']) for r in readers]}")
+    require(out["equal"], "mesh: a restored shard differs from the seeded "
+            "state's slice")
+    wl = collections.Counter()
+    for w in writers:
+        wl.update(w["launches"])
+    rl = collections.Counter()
+    for r in readers:
+        rl.update(r["launches"])
+    if DEVICE == "cuda":
+        require(wl["snapshot"] > 0 and rl["checksum"] > 0,
+                f"mesh: writer launches {dict(wl)}, reader {dict(rl)}")
+    return {"arch": MESH_ARCH, "param_bytes": param_bytes,
+            "write_mesh": list(MESH_WRITE), "restore_mesh": [1, 2],
+            "write_s": [w["write_s"] for w in writers],
+            "restore_s": [r["restore_s"] for r in readers],
+            "reader_local_bytes": [r["local_bytes"] for r in readers],
+            "wall_s": out["wall_s"], "bit_exact": True,
+            "writer_launches": dict(wl), "reader_launches": dict(rl)}
+
+
+def start_dryrun(scratch: Path):
+    """Start one full-size dry-run cell in its own process (it runs on the
+    host's CPU, beside the elastic restore): the 16 x 16 production mesh
+    on a fake process group of 256 ranks, the train step traced on fake
+    tensors."""
+    arch, shape = DRYRUN_CELL
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+           "--shape", shape, "--json-dir", str(scratch)]
+    if MESH_TINY:
+        cmd.append("--tiny")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=str(ROOT))
+
+
+def mesh_dryrun(proc, scratch: Path, t0: float) -> dict:
+    """The dry-run cell's result within its own time limit (from its start
+    at ``t0``): per-device bytes, the 80 GB check and the roofline on the
+    H100's constants."""
+    arch, shape = DRYRUN_CELL
+    try:
+        out, err = proc.communicate(
+            timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise Failure(f"dry-run {arch} x {shape} passed its "
+                      f"{DRYRUN_TIMEOUT_S} s limit")
+    if proc.returncode != 0:
+        raise Failure(f"dry-run {arch} x {shape} exited {proc.returncode}:"
+                      f"\n{out[-2000:]}\n{err[-3000:]}")
+    rec = json.loads((scratch / "16x16" / f"{arch}__{shape}.json")
+                     .read_text())
+    roof = rec["roofline"]
+    require(roof["flops"] > 0 and roof["hbm_bytes"] > 0
+            and roof["collective_bytes"] > 0,
+            f"dry-run {arch} x {shape}: {roof}")
+    return {"cell": f"{arch} x {shape} x 16x16",
+            "start_to_result_s": time.perf_counter() - t0,
+            "trace_s": rec["trace_s"],
+            "build_s": rec["build_s"], "memory": rec["memory"],
+            "fits_80GB": rec["memory"]["fits_80GB"],
+            "flops_per_device": roof["flops"],
+            "hbm_bytes_per_device": roof["hbm_bytes"],
+            "collective_bytes_per_device": roof["collective_bytes"],
+            "compute_s": roof["compute_s"], "memory_s": roof["memory_s"],
+            "collective_s": roof["collective_s"],
+            "dominant": roof["dominant"],
+            "collective_by_kind": roof["collective_by_kind"],
+            "collectives_by_shape": rec["collectives_by_shape"],
+            "model_flops_per_chip": rec["model_flops_per_chip"],
+            "model_over_traced_flops": rec["model_traced_ratio"],
+            "constants": rec["device"]}
+
+
+def phase_mesh(results: dict, scratch: Path) -> dict:
+    """The sharding layer on the card: the elastic restore across worker
+    processes and, beside it on the host, one full-size dry-run cell
+    (zamba2's one-rank-mesh runs are the train phase's)."""
+    _reset_counts()
+    t_dry = time.perf_counter()
+    proc = start_dryrun(scratch / "dryrun")
+    try:
+        t0 = time.perf_counter()
+        elastic = mesh_elastic(scratch / "elastic")
+        elastic_s = time.perf_counter() - t0
+    except BaseException:
+        proc.kill()
+        proc.communicate()
+        raise
+    shutil.rmtree(scratch / "elastic", ignore_errors=True)
+    dry = mesh_dryrun(proc, scratch / "dryrun", t_dry)
+    dry_s = time.perf_counter() - t_dry
+    parent = _counts()
+    workers = collections.Counter(elastic["writer_launches"])
+    workers.update(elastic["reader_launches"])
+    launches = {k: parent[k] + workers.get(k, 0) for k in parent}
+    results["mesh_launches"] = launches
+    return {"phase": "mesh", "elastic": elastic, "dryrun": dry,
+            "part_s": {"elastic": elastic_s, "dryrun": dry_s},
+            "launches": launches, "parent_launches": parent}
+
+
 # ---------------------------------------------------------------- phase 8
 # deepseek-v3-671b at its published widths, cut to depth 2 (one dense
 # block, one MoE block) beside its MTP head's parameters: 25.5 B
@@ -2330,15 +2546,19 @@ MOE_ARCH = "deepseek-v3-671b-d2"
 # llava-next-34b's yi-34b backbone cut to depth 8 of 60 (5.4 B parameters,
 # 10.8 GB; all 60 would be 69 GB), kimi-k2 to depth 2 of 61, one dense and
 # one MoE block of 384 experts (20.0 B parameters, 39.9 GB; a third layer
-# adds 34 GB); musicgen-medium runs whole (1.8 B parameters)
+# adds 34 GB); musicgen-medium cut to depth 24 of 48 when the mesh phase
+# came (its 4.9 GB cache's writes and restore were the serve phase's
+# largest share: the smoke's phases must stay within 1000 s)
 LLAVA_ARCH = "llava-next-34b-d8"
 KIMI_ARCH = "kimi-k2-1t-a32b-d2"
+MUSICGEN_ARCH = "musicgen-medium-d24"
 SERVE_ARCHS = ("h2o-danube-1.8b", "zamba2-2.7b", "falcon-mamba-7b", MOE_ARCH,
-               "musicgen-medium", LLAVA_ARCH, KIMI_ARCH)
+               MUSICGEN_ARCH, LLAVA_ARCH, KIMI_ARCH)
 # the registered cuts: (config module, the fields they change)
 SERVE_CUTS = {MOE_ARCH: ("deepseek_v3_671b",
                          dict(n_layers=2, first_dense_layers=1)),
               LLAVA_ARCH: ("llava_next_34b", dict(n_layers=8)),
+              MUSICGEN_ARCH: ("musicgen_medium", dict(n_layers=24)),
               KIMI_ARCH: ("kimi_k2_1t_a32b",
                           dict(n_layers=2, first_dense_layers=1))}
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 2, 8192, 32
@@ -2350,7 +2570,7 @@ SERVE_KERNELS = {"h2o-danube-1.8b": ("flash_attention",),
                  "zamba2-2.7b": ("flash_attention", "ssd_scan"),
                  "falcon-mamba-7b": ("s6_scan",),
                  MOE_ARCH: ("flash_attention",),
-                 "musicgen-medium": ("flash_attention",),
+                 MUSICGEN_ARCH: ("flash_attention",),
                  LLAVA_ARCH: ("flash_attention",),
                  KIMI_ARCH: ("flash_attention",)}
 
@@ -2682,6 +2902,11 @@ def phase_serve(results: dict, scratch: Path) -> dict:
 
 # ---------------------------------------------------------------- train
 TRAIN_TINY = False               # full-size configurations (CPU rehearsal: True)
+# zamba2 trains at depth 24 of 54 (four groups of six mamba2 blocks and the
+# shared attention block) since the mesh phase came: its 23.4 GB version's
+# write and restore were the train phase's largest share, and the phases
+# must stay within 1000 s
+ZAMBA_TRAIN_ARCH, ZAMBA_TRAIN_LAYERS = "zamba2-2.7b-d24", 24
 TRAIN_BATCH = 2
 # zamba2 cut from L 4096 and 6 steps to L 2048 and 4 steps when the serve
 # phase took seven models: the smoke's phases must stay within 1000 s
@@ -2719,13 +2944,38 @@ def _dir_bytes(root: Path) -> int:
 
 def _trees_equal(a, b) -> bool:
     """The same key paths, each leaf torch.equal (dict order aside: a
-    restore rebuilds the dicts in sorted order)."""
+    restore rebuilds the dicts in sorted order; a DTensor of a one-rank
+    mesh by its local shard, which is the whole tensor)."""
     import torch
     import torch.utils._pytree as pytree
 
-    ma, mb = ({pytree.keystr(k): v for k, v in
+    ma, mb = ({pytree.keystr(k): _local(v) for k, v in
                pytree.tree_flatten_with_path(t)[0]} for t in (a, b))
     return set(ma) == set(mb) and all(torch.equal(ma[k], mb[k]) for k in ma)
+
+
+def _local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def one_rank_mesh():
+    """A (1, 1) ("data", "model") mesh over a one-process group: NCCL on
+    the card (gloo in a CPU rehearsal), on a free localhost port."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    on_card = DEVICE == "cuda"
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    return make_mesh((1, 1), ("data", "model"),
+                     device_type="cuda" if on_card else "cpu")
 
 
 def train_trace(cfg, state, batch, ocfg) -> dict:
@@ -2864,25 +3114,33 @@ class RssPeak:
 
 
 def train_zamba2(scratch: Path) -> dict:
-    """zamba2-2.7b at full width through ``launch.train.run``: a run
+    """zamba2-2.7b at full width, cut to ZAMBA_TRAIN_LAYERS, through
+    ``launch.train.run``: a run
     checkpointing every TRAIN_CP_FREQ steps cut at step TRAIN_FAIL_AT, the
     resumed run, which must restart at TRAIN_CP_FREQ, and an uninterrupted
-    run, which the resumed one must equal bit for bit.  The uninterrupted
-    run comes last and takes the host snapshot path
-    (CRAFT_DEVICE_SNAPSHOT=0, and it writes no version): the resumed run's
-    final state stays on the card beside it, and the device snapshot's
-    word buffer (the state's size) would not fit there too."""
+    run, which the resumed one must equal bit for bit.  The cut and
+    resumed runs go through a one-rank (1, 1) mesh (``run(mesh=...)``:
+    DTensor state, the model under the sharding rules, the hand kernels
+    through ``local_map``, the checkpoint of DTensor shards); the
+    uninterrupted run is mesh-free.  It comes last and takes the host
+    snapshot path (CRAFT_DEVICE_SNAPSHOT=0, and it writes no version): the
+    resumed run's final state stays on the card beside it, and the device
+    snapshot's word buffer (the state's size) would not fit there too."""
     import dataclasses
 
     import torch
+    import torch.distributed as dist
     import torch.utils._pytree as pytree
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, register_config
+    from repro_torch.configs import zamba2_2p7b as Z
     from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.launch import train
     from repro_torch.optim.adamw import adamw_update
 
-    arch = "zamba2-2.7b"
+    arch = ZAMBA_TRAIN_ARCH
+    cut = dict(arch_id=arch, n_layers=ZAMBA_TRAIN_LAYERS)
+    register_config(arch, Z.CONFIG.replace(**cut), Z.TINY.replace(**cut))
     cfg = get_config(arch, tiny=TRAIN_TINY)
     on_card = DEVICE == "cuda"
     tc = train.TrainConfig(arch=arch, tiny=TRAIN_TINY, steps=TRAIN_STEPS,
@@ -2897,10 +3155,12 @@ def train_zamba2(scratch: Path) -> dict:
         if step == TRAIN_FAIL_AT:
             raise _Interrupted(f"interrupted after step {step}")
 
+    mesh = one_rank_mesh()
     w0 = _tier_writes()
     t0 = time.perf_counter()
     try:
-        train.run(ck, env=_train_env(scratch / "ck"), on_step=interrupt)
+        train.run(ck, env=_train_env(scratch / "ck"), on_step=interrupt,
+                  mesh=mesh)
     except _Interrupted:
         pass
     else:
@@ -2912,8 +3172,10 @@ def train_zamba2(scratch: Path) -> dict:
     version_bytes = _dir_bytes(scratch / "ck")
     # the resumed run writes no version of its own (the cut run measured a
     # write): cp_freq past the last step
-    resumed = train.run(tc, env=_train_env(scratch / "ck"))
+    resumed = train.run(tc, env=_train_env(scratch / "ck"), mesh=mesh)
     w2 = _tier_writes()
+    mesh_leaves = sum(hasattr(x, "device_mesh") and x.device_mesh == mesh
+                      for x in pytree.tree_leaves(resumed["state"]))
     require(w2[0] == w1[0], f"{arch}: the resumed run wrote a version")
     rss_ck = rss_now_gib()
     _free_host_cache()
@@ -2933,6 +3195,9 @@ def train_zamba2(scratch: Path) -> dict:
     finite = all(math.isfinite(x) for r in (clean, resumed)
                  for x in r["losses"] + r["grad_norms"])
     require(finite, f"{arch}: a loss or grad norm was not finite")
+    require(mesh_leaves == len(pytree.tree_leaves(resumed["state"])) - 1,
+            f"{arch}: {mesh_leaves} of the resumed state's leaves are "
+            "DTensors on the one-rank mesh (all but the host count)")
     require(_trees_equal(resumed["state"], clean["state"]),
             f"{arch}: the resumed run's parameters or optimizer state "
             "differ from the uninterrupted run's")
@@ -2947,8 +3212,15 @@ def train_zamba2(scratch: Path) -> dict:
                 f"{arch}: scan launches {launches} routes {scans}")
         require(launches["checksum"] > 0 and launches["snapshot"] > 0,
                 f"{arch}: checksum/snapshot never launched: {launches}")
-    params, opt = resumed["state"]["params"], resumed["state"]["opt"]
+    # the traces and the optimizer below run on the uninterrupted run's
+    # (mesh-free) state, equal to the resumed one
+    params, opt = clean["state"]["params"], clean["state"]["opt"]
     out = {"arch": arch, "batch": TRAIN_BATCH, "seq_len": ZAMBA_SEQ,
+           "mesh": {"shape": list(mesh.shape),
+                    "names": list(mesh.mesh_dim_names),
+                    "backend": dist.get_backend(),
+                    "runs": ["cut", "resumed"],
+                    "dtensor_leaves": mesh_leaves},
            "param_bytes": _tree_bytes(params),
            "moment_bytes": _tree_bytes({"m": opt["m"], "v": opt["v"]}),
            "losses": clean["losses"], "grad_norms": clean["grad_norms"],
@@ -2956,6 +3228,7 @@ def train_zamba2(scratch: Path) -> dict:
            "step_s": clean["step_s"],
            "median_step_s": statistics.median(clean["step_s"]),
            "resumed_step_s": resumed["step_s"],
+           "cut_and_resumed_on_one_rank_mesh": True,
            "peak_device_bytes": peak,
            "peak_device_bytes_all_runs": (torch.cuda.max_memory_allocated()
                                           if on_card else None),
@@ -2974,13 +3247,14 @@ def train_zamba2(scratch: Path) -> dict:
            "losses_equal": True, "state_equal": True, "finite": finite,
            "launches": launches, "attention_routes": routes,
            "scan_routes": scans}
-    del clean
+    del resumed
     gc.collect()
+    dist.destroy_process_group()
     batch = SyntheticTokens(vocab=cfg.vocab, seq_len=ZAMBA_SEQ,
                             global_batch=TRAIN_BATCH, seed=SEED).batch(0)
     ocfg = train.optim_config(tc)
     if on_card:
-        out["trace"] = train_trace(cfg, resumed["state"], batch, ocfg)
+        out["trace"] = train_trace(cfg, clean["state"], batch, ocfg)
         # the optimizer alone on the live state: seconds and the bytes it
         # allocates above what is resident
         grads = pytree.tree_map(lambda p: torch.randn(
@@ -2996,7 +3270,7 @@ def train_zamba2(scratch: Path) -> dict:
         out["update_peak_extra_bytes"] = (torch.cuda.max_memory_allocated()
                                           - base)
         del grads
-    del resumed, params, opt
+    del clean, params, opt
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
@@ -3144,7 +3418,8 @@ PATH_OF = {"checksum": "launches", "snapshot": "launches",
            "flash_attention": "serve_launches",
            "ssd_scan": "serve_launches", "s6_scan": "serve_launches"}
 ALL_PHASES = ["build", "kernels", "main", "default", "control",
-              "redundancy", "aft", "lanczos", "cluster", "serve", "train"]
+              "redundancy", "aft", "lanczos", "cluster", "mesh", "serve",
+              "train"]
 
 
 def main(argv=None) -> int:
@@ -3209,6 +3484,9 @@ def main(argv=None) -> int:
         if "cluster" in phases:
             run("cluster", phase_cluster, results, scratch / "cluster")
             shutil.rmtree(scratch / "cluster", ignore_errors=True)
+        if "mesh" in phases:
+            run("mesh", phase_mesh, results, scratch / "mesh")
+            shutil.rmtree(scratch / "mesh", ignore_errors=True)
         if "serve" in phases:
             run("serve", phase_serve, results, scratch / "serve")
         if "train" in phases:
@@ -3239,6 +3517,7 @@ def main(argv=None) -> int:
                           k["name"]],
                       "control_launches": results["control_launches"][
                           k["name"]],
+                      "mesh_launches": results["mesh_launches"][k["name"]],
                       **{n: t[n] for n in ("mla_prefill",
                                            *FRONTEND_PREFILLS) if n in t}})
     emit({"phase_wall_s": wall, "total_wall_s": sum(wall.values())})

@@ -13,9 +13,10 @@ Public surface:
     trace / simulate / tune   — record → replay → auto-tune loop
 
 The multi-process runtime is :mod:`repro_torch.runtime`; the elastic
-helpers are :mod:`repro_torch.core.elastic`.  Not ported yet: the
-JAX-mesh half of ``repro.core.elastic`` (``shrink_mesh``, ``reshard``,
-``dp_degree``).
+helpers are :mod:`repro_torch.core.elastic`: the mesh half
+(``shrink_mesh``, ``reshard``, ``dp_degree`` on a ``DeviceMesh``, with
+DTensor state that checkpoints on one mesh and restores on another) and
+the host half (``block_index``, ``hydrate_replacement``).
 """
 from repro_torch.core import metrics, telemetry
 from repro_torch.core.aft import AftAbortedError, AftZone, aft_zone

@@ -15,9 +15,15 @@ tensor types write the reference package's file layout and JSON manifests
 (``shard-<r>-<i>.bin`` + ``array-<r>.json``; ``leaf<i>-shard-<r>-<j>.bin``
 + ``tree-<r>.json``), so a version written by either package restores in
 the other.  A tensor is one unsharded shard whose index spans the whole
-array.  Restores copy into the live tensors in place when shape and dtype
-match (the tensor keeps its identity and device), else they hand back a
-new tensor on the live tensor's device.
+array.  A ``DTensor`` (a tensor sharded over a ``DeviceMesh``) is its
+rank's local shard, written under its global index (replicas included, as
+the reference writes every addressable shard); a restore into a live
+DTensor assembles only the rank's own extent from the shard files of any
+topology and copies it into the local shard (``DTensor.from_local`` on the
+live placements where it cannot copy in place).  Restores copy into the
+live tensors in place when shape and dtype match (the tensor keeps its
+identity and device), else they hand back a new tensor on the live
+tensor's device.
 
 The extension mechanism of paper §2.3 (Listing 6's "interface function") is
 the :func:`register_adapter` registry: library authors map their type to a
@@ -37,6 +43,7 @@ import torch.utils._pytree as pytree
 from repro_torch.core.cpbase import CheckpointError, CpBase, IOContext
 from repro_torch.core import reshard, storage, tiers
 from repro_torch.core.device_snapshot import DeviceSnapshotter, host_copies
+from repro_torch.sharding.activations import is_dtensor
 
 T = TypeVar("T")
 
@@ -169,6 +176,48 @@ def _full_index(ndim: int) -> list:
     return [[0, None] for _ in range(ndim)]
 
 
+def _local_shard(t: torch.Tensor):
+    """(index, local tensor): a DTensor's local shard and its global index
+    ``[[start, stop], ...]``; a plain tensor whole."""
+    if not is_dtensor(t):
+        return _full_index(t.dim()), t
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    shape, offset = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    index = [[int(o), int(o) + int(s)] for o, s in zip(offset, shape)]
+    return index, t.to_local()
+
+
+def _restored_dtensor(ctx: IOContext, meta: dict, sources, live, where):
+    """Restore into a live DTensor: assemble this rank's extent from the
+    stored shards (the range path) and copy it into the local shard, in
+    place when the dtype matches, else a new DTensor on the live
+    placements."""
+    from torch.distributed.tensor import DTensor
+
+    gshape = tuple(int(s) for s in meta["global_shape"])
+    if tuple(live.shape) != gshape:
+        raise CheckpointError(
+            f"shape mismatch: stored {gshape} vs live {tuple(live.shape)} "
+            f"({where})")
+    index, local = _local_shard(live)
+    ext = tuple((lo, hi) for lo, hi in index)
+    block = _read_global_leaf(ctx, gshape,
+                              storage._dtype_from_name(meta["dtype"]),
+                              sources, where, extent=ext)
+    t = storage.as_tensor(block, meta["dtype"])
+    if local.dtype == t.dtype:
+        with torch.no_grad():
+            local.copy_(t)
+        return live
+    return DTensor.from_local(t.to(local.device), live.device_mesh,
+                              live.placements, run_check=False,
+                              shape=live.shape, stride=live.stride())
+
+
 def _restored_tensor(host: np.ndarray, dtype_name: str, live,
                      ctx: IOContext):
     """Move a restored host array onto the live tensor: copied in place when
@@ -250,8 +299,8 @@ def _read_aux_array(path: Path, ctx: IOContext, root: Path) -> np.ndarray:
     return storage._restore_shape(payload, rdr.header, path)
 
 
-def _read_global_leaf(ctx: IOContext, gshape, dtype, sources, where: str
-                      ) -> np.ndarray:
+def _read_global_leaf(ctx: IOContext, gshape, dtype, sources, where: str,
+                      extent=None) -> np.ndarray:
     """Assemble one global array from shard files written on any topology.
 
     ``sources`` is ``[(index_spec, path, root), ...]`` — one entry per shard
@@ -263,6 +312,9 @@ def _read_global_leaf(ctx: IOContext, gshape, dtype, sources, where: str
     (:func:`reshard.overlap_runs`) and fetches only the overlapping chunk
     ranges ("range", or any shard living in a peer root).  Returns the
     global host array (``dtype`` is the host dtype of the stored name).
+    With ``extent`` (``((lo, hi), ...)``, a live DTensor's local extent)
+    only that block is assembled, always on the range path (the
+    reference's ``dst_exts``).
     """
     gshape = tuple(int(s) for s in gshape)
     dtype = np.dtype(dtype)
@@ -271,7 +323,7 @@ def _read_global_leaf(ctx: IOContext, gshape, dtype, sources, where: str
     full_ext = tuple((0, s) for s in gshape)
     has_aux = any(root is not None for _, _, root in exts)
     mode = getattr(ctx, "reshard", "auto")
-    use_range = mode == "range" or has_aux
+    use_range = mode == "range" or has_aux or extent is not None
     if not use_range and len(exts) == 1 and exts[0][0] == full_ext:
         arr = storage.read_array(exts[0][1], ctx)
         if arr.size != int(np.prod(gshape, dtype=np.int64)):
@@ -304,11 +356,11 @@ def _read_global_leaf(ctx: IOContext, gshape, dtype, sources, where: str
         return r
 
     srcs = [(e, (str(p), p, root)) for e, p, root in exts]
-    block, covered = reshard.assemble_extent(full_ext, dtype, srcs,
-                                             open_reader)
+    dst = full_ext if extent is None else tuple(extent)
+    block, covered = reshard.assemble_extent(dst, dtype, srcs, open_reader)
     if covered is not None and not covered.all():
         raise CheckpointError(
-            f"incomplete shard coverage for extent {full_ext} under {where} "
+            f"incomplete shard coverage for extent {dst} under {where} "
             f"({int(covered.sum())}/{covered.size} elements)"
         )
     return block
@@ -344,14 +396,14 @@ class TorchTensorCp(CpBase):
         arr = self.box.value
         if not isinstance(arr, torch.Tensor):
             raise CheckpointError(f"Box no longer holds a tensor: {type(arr)}")
-        index = _full_index(arr.dim())
+        index, local = _local_shard(arr)
         if self._snap is not None:
             # fused device pass: digest + dirty mask + entropy on the card,
             # then only the dirty chunks cross to the host mirror
-            host, dmeta = self._snap.snapshot(0, arr)
+            host, dmeta = self._snap.snapshot(0, local)
             self._buf = [(index, host, dmeta)]
         else:
-            self._buf = [(index, host_copies([arr])[0], None)]
+            self._buf = [(index, host_copies([local])[0], None)]
         self._meta = {
             "global_shape": list(arr.shape),
             "dtype": storage._dtype_to_name(arr.dtype),
@@ -381,6 +433,10 @@ class TorchTensorCp(CpBase):
             for m, d, root in manifests
             for sh in m["shards"]
         ]
+        if is_dtensor(self.box.value):
+            self.box.value = _restored_dtensor(
+                ctx, meta0, sources, self.box.value, str(dir_path))
+            return
         host = _read_global_leaf(
             ctx, meta0["global_shape"],
             storage._dtype_from_name(meta0["dtype"]), sources, str(dir_path))
@@ -465,20 +521,20 @@ class PytreeCp(CpBase):
                     "dtype": storage._dtype_to_name(leaf.dtype),
                     "shards": [],
                 }
-                index = _full_index(leaf.dim())
+                index, local = _local_shard(leaf)
                 if self._snap is not None:
-                    host, dmeta = self._snap.snapshot((i, 0), leaf)
+                    host, dmeta = self._snap.snapshot((i, 0), local)
                     item["shards"].append((index, host, dmeta))
                 else:
-                    copy_items.append((item, leaf))
+                    copy_items.append((item, index, local))
                 buf.append(item)
             elif isinstance(leaf, np.ndarray):
                 buf.append({"kind": "np", "data": leaf.copy()})
             else:
                 buf.append({"kind": "pod", "data": leaf})
-        hosts = host_copies([t for _, t in copy_items])
-        for (item, leaf), h in zip(copy_items, hosts):
-            item["shards"].append((_full_index(leaf.dim()), h, None))
+        hosts = host_copies([t for _, _, t in copy_items])
+        for (item, index, _), h in zip(copy_items, hosts):
+            item["shards"].append((index, h, None))
         self._buf = buf
 
     def write(self, dir_path: Path, ctx: IOContext) -> None:
@@ -535,6 +591,10 @@ class PytreeCp(CpBase):
                     for m, d, root in parsed
                     for sh in m["leaves"][i].get("shards", [])
                 ]
+                if is_dtensor(live):
+                    new_leaves.append(_restored_dtensor(
+                        ctx, lspec, sources, live, f"{dir_path} (leaf {i})"))
+                    continue
                 host = _read_global_leaf(
                     ctx, lspec["global_shape"],
                     storage._dtype_from_name(lspec["dtype"]), sources,

@@ -1,18 +1,81 @@
-"""Elastic helpers: balanced block decomposition and replacement-rank
-hydration, ported from ``repro.core.elastic``.
+"""Elastic remesh and helpers, ported from ``repro.core.elastic``.
 
-The checkpoint manifest is topology-independent (shard files + global
-indices), so a checkpoint written on N ranks restores onto M: each rank
-owns the block :func:`block_index` gives it (``ShardCp`` +
-``reshard.overlap_runs`` map the blocks across topologies), and a rank
-spawned by NON-SHRINKING recovery restores its slice through
-:func:`hydrate_replacement`.
+The paper's shrinking recovery leaves domain redistribution to the user.
+Here the checkpoint manifest is topology-independent (shard files + global
+indices), so after a shrink the framework itself rebuilds a smaller mesh
+and restores the same global state resharded.
 
-The reference's mesh half (``shrink_mesh``, ``reshard``, ``dp_degree``)
-builds JAX meshes from its sharding rules; it comes with the port of the
-sharding layer.
+The data-parallel axis absorbs the shrink (every DP slice holds a full
+model replica group, so dropping DP slices never strands a weight shard);
+the model axis is preserved.  :func:`shrink_mesh` builds the largest valid
+``DeviceMesh`` for the surviving process count; :func:`reshard` moves a
+live tree onto it.  A restore from a checkpoint needs no special code:
+build the state on the new mesh (DTensors placed by the same logical
+rules) and ``Checkpoint.restart_if_needed()`` — each rank reads only its
+own extents from the shard files (``core.checkpointables``).
+
+Host-side domain decomposition: each rank owns the block
+:func:`block_index` gives it (``ShardCp`` + ``reshard.overlap_runs`` map
+the blocks across topologies), and a rank spawned by NON-SHRINKING
+recovery restores its slice through :func:`hydrate_replacement`.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.utils._pytree as pytree
+
+from repro_torch.sharding.logical import LogicalRules, placements, shard_specs
+
+
+def shrink_mesh(n_devices: int, model_parallel: int,
+                axis_names: Tuple[str, ...] = ("data", "model"),
+                device_type: str = "cuda"):
+    """Largest (data, model) mesh with the given TP degree that fits
+    ``n_devices`` devices: the first ``data * model_parallel`` ranks of
+    the default process group (every rank of the group calls it).  Raises
+    if fewer than one model group survives."""
+    if n_devices < model_parallel:
+        raise ValueError(
+            f"{n_devices} devices cannot hold one {model_parallel}-way "
+            "model-parallel group — shrink recovery impossible; use "
+            "non-shrinking recovery with spare nodes instead")
+    from torch.distributed.device_mesh import DeviceMesh
+
+    data = n_devices // model_parallel
+    ranks = torch.arange(data * model_parallel).reshape(data, model_parallel)
+    return DeviceMesh(device_type, ranks, mesh_dim_names=tuple(axis_names))
+
+
+def reshard(tree, logical_tree, new_mesh,
+            rules: Optional[LogicalRules] = None):
+    """Move a live tree onto ``new_mesh`` under the same logical rules;
+    returns (tree, specs).  A DTensor already on ``new_mesh`` is
+    redistributed; a plain tensor (the same on every rank) or a DTensor
+    of another mesh (gathered there first) is split, each rank keeping
+    its own shards."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    rules = rules or LogicalRules(new_mesh)
+    specs = shard_specs(rules, logical_tree, tree)
+
+    def move(x, spec):
+        pls = placements(spec, new_mesh)
+        if isinstance(x, DTensor):
+            if x.device_mesh == new_mesh:
+                return x.redistribute(new_mesh, pls)
+            x = x.full_tensor()
+        return distribute_tensor(x, new_mesh, pls, src_data_rank=None)
+
+    return pytree.tree_map(move, tree, specs,
+                           is_leaf=lambda x: isinstance(x, torch.Tensor)), \
+        specs
+
+
+def dp_degree(mesh) -> int:
+    sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+    return sizes.get("data", 1) * sizes.get("pod", 1)
 
 
 def block_index(global_shape, rank: int, size: int, axis: int = 0):

@@ -1091,9 +1091,11 @@ class VersionStore(StorageTier):
 
     Multi-process coordination: all processes of ``comm`` share one staging
     directory per version (deterministic name, rank-distinct file names
-    inside); ``publish()`` barriers, then rank 0 alone performs the atomic
-    rename + metadata commit, then barriers again so no process reads a
-    version before it is complete.
+    inside); opening the store barriers after rank 0's sweep of torn
+    staging dirs (the reference's store does not, and a process that
+    stages first loses its files to the sweep); ``publish()`` barriers,
+    then rank 0 alone performs the atomic rename + metadata commit, then
+    barriers again so no process reads a version before it is complete.
     """
 
     label = "pfs"
@@ -1108,6 +1110,11 @@ class VersionStore(StorageTier):
         self.root.mkdir(parents=True, exist_ok=True)
         if sweep and self._rank() == 0:
             tiers.sweep_tmp_dirs(self.root)
+        if sweep:
+            # every process opens its store (Checkpoint.commit): none may
+            # stage a version before rank 0 has swept the torn ones, or
+            # the sweep deletes its files
+            self._barrier()
 
     def _rank(self) -> int:
         return 0 if self.comm is None else self.comm.rank

@@ -17,10 +17,19 @@ checkpoint holds the same items under the same names as the reference's
 (``state`` = {"params", "opt"}, ``step``, ``cursor``), so a train
 checkpoint written by either package restores in the other.
 
-One device, no mesh: the reference's sharding rules are identities here
-until the sharding slice of the port.  ``TrainConfig.device`` (default
-``"cuda"``) places the state; ``--device cpu`` runs the plain versions of
-the kernels.  For a bit-exact resume on the card the caller turns on
+Without a mesh the state lives on one device, as plain tensors.  With
+``mesh`` (a ``DeviceMesh`` with ``data`` and ``model`` dimensions, over
+the processes of a ``torch.distributed`` group) the state is DTensors
+placed by the reference's rules (``_mesh_rules``: the default 2-D rules,
+``sequence_parallel`` splitting the residual stream's d_model over
+``model``), each rank draws the same seeded parameters and keeps its
+shards, the global batch is split by the rules, and every step runs under
+the rules (``sharding.activations.mesh_context``); the checkpoint writes
+each rank's shards, so a checkpoint taken on one mesh restores on another.
+A mesh run is held to the mesh-free one.  ``sequence_parallel`` without a
+mesh changes nothing, as in the reference (its one-device mesh has no
+``model`` axis).  ``TrainConfig.device`` (default ``"cuda"``) places the
+state; ``--device cpu`` runs the plain versions of the kernels.  For a bit-exact resume on the card the caller turns on
 ``torch.use_deterministic_algorithms`` (with ``CUBLAS_WORKSPACE_CONFIG``
 set before cuBLAS starts), as ``main`` does: the embedding's backward
 (``index_put`` with accumulation) is otherwise nondeterministic there.
@@ -37,6 +46,7 @@ import time
 from typing import Callable, Dict, List, Optional
 
 import torch
+import torch.utils._pytree as pytree
 
 from repro_torch.configs import get_config
 from repro_torch.core import Box, Checkpoint
@@ -47,6 +57,8 @@ from repro_torch.data.pipeline import DataCursor, SyntheticTokens
 from repro_torch.models import model as M
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim.adamw import OptimConfig, adamw_init
+from repro_torch.sharding.activations import mesh_context
+from repro_torch.sharding.logical import LogicalRules, placements, shard_specs
 from repro_torch.train.steps import StepTimer, TrainStepConfig, make_train_step
 
 log = logging.getLogger("craft.train")
@@ -64,7 +76,7 @@ class TrainConfig:
     seed: int = 0
     microbatches: int = 1
     lr: float = 3e-4
-    sequence_parallel: bool = False      # a mesh option: sharding slice
+    sequence_parallel: bool = False      # a mesh option (Megatron-SP)
     fail_at_step: Optional[int] = None   # in-process fault injection (tests)
     device: str = "cuda"
 
@@ -75,13 +87,52 @@ def optim_config(tc: TrainConfig) -> OptimConfig:
                        total_steps=max(tc.steps, 10))
 
 
+def _mesh_rules(mesh, sequence_parallel: bool) -> LogicalRules:
+    rules = LogicalRules(mesh)
+    if sequence_parallel:
+        rules.rules["embed_act"] = "model"
+    return rules
+
+
+def shard_tree(tree, logical_tree, rules: LogicalRules):
+    """Each leaf of ``tree`` (the same full tensor on every rank) as a
+    DTensor on ``rules``' mesh, placed by its logical dims: every rank
+    keeps its own shards, and nothing crosses ranks."""
+    from torch.distributed.tensor import distribute_tensor
+
+    specs = shard_specs(rules, logical_tree, tree)
+    return pytree.tree_map(
+        lambda x, spec: distribute_tensor(
+            x, rules.mesh, placements(spec, rules.mesh), src_data_rank=None),
+        tree, specs, is_leaf=lambda x: isinstance(x, torch.Tensor))
+
+
 def init_state(cfg: ModelConfig, ocfg: OptimConfig, seed: int,
-               device="cuda"):
+               device="cuda", rules: Optional[LogicalRules] = None):
     """(params, opt_state) on ``device``: parameters from a
-    ``torch.Generator`` seeded with ``seed``, then ``adamw_init``."""
+    ``torch.Generator`` seeded with ``seed``, then ``adamw_init``.  With
+    ``rules`` the parameters are DTensors on the rules' mesh (each rank
+    draws the whole tree and keeps its shards, one leaf at a time), and
+    the optimizer state takes their placements."""
     gen = torch.Generator(device=device).manual_seed(seed)
     params = M.init_params(gen, cfg, device)
+    if rules is not None:
+        params = shard_tree(params, M.param_logical(cfg), rules)
     return params, adamw_init(params, ocfg)
+
+
+def shard_batch(batch: dict, rules: LogicalRules, device) -> dict:
+    """The global batch split over the mesh by ("batch", "seq")."""
+    from torch.distributed.tensor import distribute_tensor
+
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v).to(device)
+        out[k] = distribute_tensor(
+            t, rules.mesh, rules.placements("batch", "seq",
+                                            shape=tuple(t.shape)),
+            src_data_rank=None)
+    return out
 
 
 def _sync(device: torch.device) -> None:
@@ -89,7 +140,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run(tc: TrainConfig, comm=None,
+def run(tc: TrainConfig, comm=None, mesh=None,
         on_step: Optional[Callable[[int, Dict], None]] = None,
         env=None) -> Dict:
     """Train; returns {"losses", "final_step", "wall_s", "step_seconds",
@@ -101,13 +152,13 @@ def run(tc: TrainConfig, comm=None,
 
     With ``comm`` (an FTComm), the whole loop runs inside an AFT zone: the
     checkpoint is (re)opened inside the zone body (paper Listing 9) so every
-    recovery re-reads the latest consistent version.
+    recovery re-reads the latest consistent version.  With ``mesh`` the
+    state is sharded over it (module note); ``comm`` then names each
+    process's rank to the checkpoint (one process needs none).
     """
-    if tc.sequence_parallel:
-        raise NotImplementedError("sequence_parallel is a mesh option: it "
-                                  "comes with the sharding slice of the "
-                                  "port (ROADMAP.md)")
     cfg = get_config(tc.arch, tiny=tc.tiny)
+    rules = (None if mesh is None
+             else _mesh_rules(mesh, tc.sequence_parallel))
     device = torch.device(tc.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -120,7 +171,7 @@ def run(tc: TrainConfig, comm=None,
         seed=tc.seed, n_shards=1, shard=0)   # deterministic global batch
 
     def body(comm_inner):
-        params, opt_state = init_state(cfg, ocfg, tc.seed, device)
+        params, opt_state = init_state(cfg, ocfg, tc.seed, device, rules)
         state_box = Box({"params": params, "opt": opt_state})
         step_box = Box(0)
         cursor = DataCursor(0)
@@ -146,8 +197,14 @@ def run(tc: TrainConfig, comm=None,
             while step_box.value < tc.steps:
                 step_t0 = time.perf_counter()
                 batch = data.batch(cursor.step)
-                p, o, metrics = step_fn(state_box.value["params"],
-                                        state_box.value["opt"], batch)
+                if rules is None:
+                    p, o, metrics = step_fn(state_box.value["params"],
+                                            state_box.value["opt"], batch)
+                else:
+                    with mesh_context(rules):
+                        p, o, metrics = step_fn(
+                            state_box.value["params"], state_box.value["opt"],
+                            shard_batch(batch, rules, device))
                 state_box.value = {"params": p, "opt": o}
                 cursor.step += 1
                 step_box.value += 1

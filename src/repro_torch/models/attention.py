@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.models.layers import Init, apply_rope, dense_init, rms_norm
+from repro_torch.sharding.activations import constrain
 
 Cache = dict
 
@@ -47,6 +48,23 @@ def gqa_init(ini: Init, cfg):
         "wk": dense_init(ini, (d, hkv, hd), d, cfg.dtype),
         "wv": dense_init(ini, (d, hkv, hd), d, cfg.dtype),
         "wo": dense_init(ini, (h, hd, d), h * hd, cfg.dtype),
+    }
+
+
+def gqa_logical(cfg):
+    return {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+
+
+def gqa_cache_logical(cfg):
+    return {
+        "k": ("batch", "kv_heads", "seq", "head_dim"),
+        "v": ("batch", "kv_heads", "seq", "head_dim"),
+        "pos": (),
     }
 
 
@@ -76,6 +94,9 @@ def gqa_apply(
     q = apply_rope(_heads(x, params["wq"]), positions, cfg.rope_theta)
     k = apply_rope(_heads(x, params["wk"]), positions, cfg.rope_theta)
     v = _heads(x, params["wv"])
+    q = constrain(q, "batch", "heads", None, "head_dim")
+    k = constrain(k, "batch", "kv_heads", None, "head_dim")
+    v = constrain(v, "batch", "kv_heads", None, "head_dim")
 
     if cache is None:
         y = attention(q, k, v, causal=True, window=cfg.window)
@@ -156,6 +177,30 @@ def mla_init(ini: Init, cfg):
     else:
         params["wq"] = dense_init(ini, (d, h, qk), d, cfg.dtype)
     return params
+
+
+def mla_logical(cfg):
+    out = {
+        "wkv_a": ("embed", "latent"),
+        "kv_norm": (None,),
+        "wkv_b": ("latent", "heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+    if cfg.q_lora_rank:
+        out["wq_a"] = ("embed", "latent")
+        out["q_norm"] = (None,)
+        out["wq_b"] = ("latent", "heads", "head_dim")
+    else:
+        out["wq"] = ("embed", "heads", "head_dim")
+    return out
+
+
+def mla_cache_logical(cfg):
+    return {
+        "ckv": ("batch", "seq", "latent"),
+        "krope": ("batch", "seq", None),
+        "pos": (),
+    }
 
 
 def mla_cache_init(cfg, batch: int, max_len: int, dtype,

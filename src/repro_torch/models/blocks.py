@@ -7,7 +7,9 @@ from typing import Optional
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import Init, mlp_apply, mlp_init, rms_norm
+from repro_torch.models.layers import (
+    Init, mlp_apply, mlp_init, mlp_logical, rms_norm,
+)
 
 
 # ---------------------------------------------------------------- transformer
@@ -20,6 +22,14 @@ def tblock_init(ini: Init, cfg, d_ff: Optional[int] = None,
     params["ffn"] = (moe_mod.moe_init(ini, cfg) if use_moe
                      else mlp_init(ini, cfg, d_ff=d_ff))
     return params
+
+
+def tblock_logical(cfg, use_moe: bool = False):
+    a = (attn.mla_logical(cfg) if cfg.attn_type == "mla"
+         else attn.gqa_logical(cfg))
+    f = moe_mod.moe_logical(cfg) if use_moe else mlp_logical(cfg)
+    return {"ln1": ("embed_act",), "attn": a, "ln2": ("embed_act",),
+            "ffn": f}
 
 
 def tblock_apply(params, x, cfg, positions, cache=None, use_moe: bool = False):
@@ -44,6 +54,12 @@ def sblock_init(ini: Init, cfg):
     return {"ln": ini.full((cfg.d_model,), 1.0, cfg.dtype), "ssm": m}
 
 
+def sblock_logical(cfg):
+    m = (ssm_mod.mamba2_logical if cfg.ssm_type == "mamba2"
+         else ssm_mod.mamba1_logical)(cfg)
+    return {"ln": ("embed_act",), "ssm": m}
+
+
 def sblock_apply(params, x, cfg, cache=None):
     h = rms_norm(x, params["ln"], cfg.norm_eps)
     apply = (ssm_mod.mamba2_apply if cfg.ssm_type == "mamba2"
@@ -62,3 +78,14 @@ def tblock_cache_init(cfg, batch: int, max_len: int, dtype, device="cuda"):
 def sblock_cache_init(cfg, batch: int, dtype, device="cuda"):
     return (ssm_mod.mamba2_cache_init if cfg.ssm_type == "mamba2"
             else ssm_mod.mamba1_cache_init)(cfg, batch, dtype, device)
+
+
+def tblock_cache_logical(cfg):
+    if cfg.attn_type == "mla":
+        return attn.mla_cache_logical(cfg)
+    return attn.gqa_cache_logical(cfg)
+
+
+def sblock_cache_logical(cfg):
+    return (ssm_mod.mamba2_cache_logical if cfg.ssm_type == "mamba2"
+            else ssm_mod.mamba1_cache_logical)(cfg)

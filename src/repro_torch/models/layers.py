@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 import torch.utils._pytree as pytree
 
+from repro_torch.sharding.activations import gather_rows, is_dtensor
+
 _SQRT2 = math.sqrt(2.0)
 # the standard normal CDF at -2 and 2: the truncation bounds in [0, 1]
 _LO = 0.5 * (1.0 + math.erf(-2.0 / _SQRT2))
@@ -130,8 +132,15 @@ def embed_init(ini: Init, cfg):
                                     cfg.d_model, cfg.dtype)}
 
 
+def embed_logical(cfg):
+    return {"embedding": ("vocab", "embed")}
+
+
 def embed_apply(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embedding"][tokens.long()]
+    table = params["embedding"]
+    if is_dtensor(table):
+        return gather_rows(table, tokens)
+    return table[tokens.long()]
 
 
 def unembed_apply(params, x: torch.Tensor, fp32: bool = True) -> torch.Tensor:
@@ -146,6 +155,14 @@ def mlp_init(ini: Init, cfg, d_ff: Optional[int] = None):
         "w_gate": dense_init(ini, (d, f), d, cfg.dtype),
         "w_up": dense_init(ini, (d, f), d, cfg.dtype),
         "w_down": dense_init(ini, (f, d), f, cfg.dtype),
+    }
+
+
+def mlp_logical(cfg):
+    return {
+        "w_gate": ("embed", "mlp"),
+        "w_up": ("embed", "mlp"),
+        "w_down": ("mlp", "embed"),
     }
 
 

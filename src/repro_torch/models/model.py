@@ -15,9 +15,14 @@ Families of the port
 
 Parameters keep the reference's tree and layer-stacked layout: ``blocks``
 (and the moe family's ``dense_blocks``) leaves are ``(n_layers, ...)``;
-``shared_block``, ``lm_head`` and ``mtp`` are as there.  The reference's
-``lax.scan`` over layers is a Python loop over the stacked leaves; the
-mesh constraints have no counterpart here.
+``shared_block``, ``lm_head`` and ``mtp`` are as there, and
+``param_logical`` / ``cache_logical`` give the reference's logical dims
+of both trees.  The reference's ``lax.scan`` over layers is a Python loop
+over the stacked leaves.  The reference's mesh constraints are here too
+(``sharding.activations.constrain``: the residual stream pinned to
+(batch, seq, embed_act) after the embedding and every block): no-ops on
+plain tensors, redistributions when the parameters and inputs are
+DTensors on a mesh (``launch.train.run(mesh=...)``, the dry-run).
 
 Training is ``forward_hidden`` without a cache.  Where autograd records,
 ``cfg.remat`` (the default) wraps every block in
@@ -44,9 +49,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import blocks as blk
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import (
-    Init, dense_init, embed_apply, embed_init, rms_norm, stack_init,
-    unembed_apply,
+    Init, dense_init, embed_apply, embed_init, embed_logical, rms_norm,
+    stack_init, unembed_apply,
 )
+from repro_torch.sharding.activations import constrain
+from repro_torch.sharding.logical import is_dims
 
 SERVED_FAMILIES = ("dense", "audio", "vlm", "moe", "ssm", "hybrid")
 DENSE_FAMILIES = ("dense", "audio", "vlm")
@@ -55,6 +62,11 @@ DENSE_FAMILIES = ("dense", "audio", "vlm")
 def _served(cfg: ModelConfig) -> None:
     if cfg.family not in SERVED_FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r} ({cfg.arch_id})")
+
+
+def _prepend(axis: str, tree):
+    return pytree.tree_map(lambda dims: (axis, *dims), tree,
+                           is_leaf=is_dims)
 
 
 def _layer_slice(tree, i: int):
@@ -114,6 +126,32 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
     return params
 
 
+def param_logical(cfg: ModelConfig):
+    """The parameters' logical dims, the reference's tree."""
+    out = {"embed": embed_logical(cfg), "final_ln": ("embed_act",)}
+    if cfg.family in DENSE_FAMILIES:
+        out["blocks"] = _prepend("layers", blk.tblock_logical(cfg))
+    elif cfg.family == "moe":
+        if cfg.first_dense_layers:
+            out["dense_blocks"] = _prepend("layers", blk.tblock_logical(cfg))
+        out["blocks"] = _prepend("layers",
+                                 blk.tblock_logical(cfg, use_moe=True))
+    elif cfg.family == "ssm":
+        out["blocks"] = _prepend("layers", blk.sblock_logical(cfg))
+    elif cfg.family == "hybrid":
+        out["blocks"] = _prepend("layers", blk.sblock_logical(cfg))
+        out["shared_block"] = blk.tblock_logical(cfg)
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ("embed", "vocab")
+    if cfg.mtp:
+        out["mtp"] = {
+            "proj": ("embed", "embed"),
+            "ln": ("embed_act",),
+            "block": blk.tblock_logical(cfg, use_moe=cfg.family == "moe"),
+        }
+    return out
+
+
 # ==========================================================================
 # caches
 # ==========================================================================
@@ -151,6 +189,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     return out
 
 
+def cache_logical(cfg: ModelConfig):
+    """The caches' logical dims, the reference's tree."""
+    if cfg.family in DENSE_FAMILIES or cfg.family == "moe":
+        proto = _prepend("layers", blk.tblock_cache_logical(cfg))
+        out = {"layers": proto}
+        if cfg.family == "moe" and cfg.first_dense_layers:
+            out["dense_layers"] = proto
+        return out
+    if cfg.family == "ssm":
+        return {"layers": _prepend("layers", blk.sblock_cache_logical(cfg))}
+    if cfg.family == "hybrid":
+        return {"layers": _prepend("layers", blk.sblock_cache_logical(cfg)),
+                "shared": _prepend("layers", blk.tblock_cache_logical(cfg))}
+    raise ValueError(cfg.family)
+
+
 # ==========================================================================
 # forward
 # ==========================================================================
@@ -173,9 +227,11 @@ def _run_stack(block_apply, stacked_params, x, cfg: ModelConfig,
     n = pytree.tree_leaves(stacked_params)[0].shape[0]
     fn = _remat(block_apply, cfg, caches)
     aux = 0.0
+    x = constrain(x, "batch", "seq", "embed_act")
     for i, p in enumerate(_layers(stacked_params, n)):
         c = _layer_slice(caches, i) if caches is not None else None
         x, _, a = fn(p, x, c)
+        x = constrain(x, "batch", "seq", "embed_act")
         aux = aux + a
     return x, aux
 
@@ -210,6 +266,7 @@ def forward_hidden(
     if tokens is not None:
         parts.append(embed_apply(params["embed"], tokens))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    x = constrain(x, "batch", "seq", "embed_act")
     l = x.shape[1]
     pos0 = 0 if pos0 is None else int(pos0)
     positions = torch.arange(l, device=x.device) + pos0
@@ -275,12 +332,14 @@ def _hybrid_forward(params, x, cfg, positions, cache):
             c = (_layer_slice(cache["layers"], i)
                  if cache is not None else None)
             x, _, a = s_fn(blocks[i], x, c)
+            x = constrain(x, "batch", "seq", "embed_act")
             aux = aux + a
         layer = hi
         if cfg.shared_attn_every and g < n_shared:
             c = (_layer_slice(cache["shared"], g)
                  if cache is not None else None)
             x, _, a = t_fn(params["shared_block"], x, c)
+            x = constrain(x, "batch", "seq", "embed_act")
             aux = aux + a
     return x, aux
 

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssm_scan.ops import selective_scan
 from repro_torch.models.layers import Init, dense_init
+from repro_torch.sharding.activations import constrain
 
 Cache = dict
 
@@ -81,6 +82,28 @@ def mamba1_init(ini: Init, cfg):
     }
 
 
+def mamba1_logical(cfg):
+    return {
+        "in_proj": ("embed", "ssm_inner"),
+        "conv_w": ("conv", "ssm_inner"),
+        "conv_b": ("ssm_inner",),
+        "x_proj": ("ssm_inner", None),
+        "dt_proj": ("dt_rank", "ssm_inner"),
+        "dt_bias": ("ssm_inner",),
+        "A_log": ("ssm_inner", "ssm_state"),
+        "D": ("ssm_inner",),
+        "out_proj": ("ssm_inner", "embed"),
+    }
+
+
+def mamba1_cache_logical(cfg):
+    return {
+        "conv": ("batch", "conv", "ssm_inner"),
+        "h": ("batch", "ssm_inner", "ssm_state"),
+        "pos": (),
+    }
+
+
 def mamba1_cache_init(cfg, batch: int, dtype, device="cuda") -> Cache:
     return {
         "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner),
@@ -112,7 +135,10 @@ def mamba1_apply(
 
     h0 = (cache["h"] if cache is not None
           else torch.zeros((b, di, st), dtype=torch.float32, device=x.device))
-    y, h_last = selective_scan(dt * xs, bmat, cmat, dt, a_mat, h0,
+    # the scan's inputs and state: batch x channels (the rest follows)
+    dtx = constrain(dt * xs, "batch", None, "ssm_inner")
+    h0 = constrain(h0, "batch", "ssm_inner", "ssm_state")
+    y, h_last = selective_scan(dtx, bmat, cmat, dt, a_mat, h0,
                                chunk=cfg.ssm_chunk)
     y = y + params["D"].float()[None, None] * xs
     y = y * F.silu(z.float())
@@ -140,6 +166,27 @@ def mamba2_init(ini: Init, cfg):
         "D": ini.full((nh,), 1.0, torch.float32),
         "norm_w": ini.full((di,), 1.0, cfg.dtype),
         "out_proj": dense_init(ini, (di, d), di, cfg.dtype),
+    }
+
+
+def mamba2_logical(cfg):
+    return {
+        "in_proj": ("embed", "ssm_inner"),
+        "conv_w": ("conv", "ssm_inner"),
+        "conv_b": ("ssm_inner",),
+        "dt_bias": ("ssm_heads",),
+        "A_log": ("ssm_heads",),
+        "D": ("ssm_heads",),
+        "norm_w": ("ssm_inner",),
+        "out_proj": ("ssm_inner", "embed"),
+    }
+
+
+def mamba2_cache_logical(cfg):
+    return {
+        "conv": ("batch", "conv", "ssm_inner"),
+        "h": ("batch", "ssm_heads", None, "ssm_state"),
+        "pos": (),
     }
 
 
@@ -182,7 +229,10 @@ def mamba2_apply(
     h0 = (cache["h"] if cache is not None
           else torch.zeros((b, nh, hd, st), dtype=torch.float32,
                            device=x.device))
-    y, h_last = selective_scan(dt[..., None] * xs, bh, ch, dt, a, h0,
+    # the scan's inputs and state: batch x heads (the rest follows)
+    dtx = constrain(dt[..., None] * xs, "batch", None, "ssm_heads", None)
+    h0 = constrain(h0, "batch", "ssm_heads", None, "ssm_state")
+    y, h_last = selective_scan(dtx, bh, ch, dt, a, h0,
                                chunk=cfg.ssm_chunk)
     y = y + params["D"][None, None, :, None] * xs
     y = y.reshape(b, l, di)

@@ -20,8 +20,16 @@ same way.
 
 ``count`` is a host (CPU) int32 scalar, so the learning rate and the bias
 corrections need no device sync; every other leaf lives on its
-parameter's device.  ``opt_state_logical`` (sharding metadata) comes with
-the sharding slice of the port.
+parameter's device.
+
+On a mesh the parameters are DTensors: the moments and the master copy
+take each parameter's placements (``opt_state_logical`` gives their
+logical dims, the reference's tree), and the update runs on each rank's
+local shards, sliced as above.  Two sums cross the shards: the global
+norm's partial sums, each slice's all-reduced over the mesh dimensions
+that split its leaf before it joins the running total (so one rank sums
+exactly as one device does), and an int8 block's absmax, all-reduced
+(max) where a mesh dimension splits the leaf's last axis.
 """
 from __future__ import annotations
 
@@ -33,6 +41,8 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 from torch.profiler import record_function
+
+from repro_torch.sharding.activations import is_dtensor
 
 SLICE_ELEMS = 1 << 27        # values of a leaf updated at once (512 MB fp32)
 
@@ -66,8 +76,14 @@ def warmup_cosine(cfg: OptimConfig, step) -> float:
 
 
 # ----------------------------------------------------------- int8 moments
-def _quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _quantize(x: torch.Tensor, groups=()) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """Blockwise absmax int8 of ``x``; ``groups``: the process groups of
+    the mesh dimensions that split the last axis (absmax all-reduced)."""
     absmax = x.abs().amax(dim=-1, keepdim=True)
+    for g in groups:
+        torch.distributed.all_reduce(absmax, op=torch.distributed.ReduceOp.MAX,
+                                     group=g)
     scale = torch.where(absmax > 0, absmax / 127.0, 1.0)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale.to(torch.float32)
@@ -81,6 +97,60 @@ def _is_q(x) -> bool:
     return isinstance(x, dict) and set(x) == {"q", "scale"}
 
 
+def _local(x):
+    """A DTensor's local shard (a plain tensor as it is)."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def _split_groups(p, dim: Optional[int] = None) -> list:
+    """Process groups of the mesh dimensions that split DTensor ``p`` (on
+    tensor dim ``dim``, or on any dim); none for a plain tensor."""
+    if not is_dtensor(p):
+        return []
+    from torch.distributed.tensor import Shard
+
+    return [p.device_mesh.get_group(i) for i, pl in enumerate(p.placements)
+            if isinstance(pl, Shard) and (dim is None or pl.dim == dim)]
+
+
+def _zeros_like(p, shape, dtype):
+    """Zeros of ``shape`` for parameter ``p``: on its device, or for a
+    DTensor ``p`` a DTensor on its placements (a last dim of 1, an int8
+    scale's, is whole)."""
+    if not is_dtensor(p):
+        return torch.zeros(shape, dtype=dtype, device=p.device)
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.sharding.logical import dtensor_of
+
+    pls = tuple(Replicate() if isinstance(pl, Shard) and shape[pl.dim] == 1
+                and p.shape[pl.dim] != 1 else pl for pl in p.placements)
+    device = p.to_local().device
+    return dtensor_of(shape, p.device_mesh, pls, lambda s: torch.zeros(
+        s, dtype=dtype, device=device))
+
+
+def opt_state_logical(param_logical_tree, cfg: OptimConfig, params=None):
+    """Logical dims for the optimizer state (moments shard like params)."""
+    from repro_torch.sharding.logical import is_dims
+
+    def moment_dims(dims, p=None):
+        if cfg.state_bits == 8 and p is not None and p.dim() >= 1 \
+                and p.shape[-1] >= 4:
+            return {"q": dims, "scale": dims}
+        return dims
+
+    if params is not None and cfg.state_bits == 8:
+        mtree = pytree.tree_map(moment_dims, param_logical_tree, params,
+                                is_leaf=is_dims)
+    else:
+        mtree = param_logical_tree
+    out = {"m": mtree, "v": mtree, "count": ()}
+    if cfg.master_fp32:
+        out["master"] = param_logical_tree
+    return out
+
+
 # ----------------------------------------------------------------- init
 def adamw_init(params, cfg: OptimConfig):
     """Zeroed moments on each parameter's device, the host ``count``, and
@@ -88,12 +158,10 @@ def adamw_init(params, cfg: OptimConfig):
 
     def moment(p: torch.Tensor):
         if cfg.state_bits == 8 and p.dim() >= 1 and p.shape[-1] >= 4:
-            return {"q": torch.zeros(p.shape, dtype=torch.int8,
-                                     device=p.device),
-                    "scale": torch.zeros((*p.shape[:-1], 1),
-                                         dtype=torch.float32,
-                                         device=p.device)}
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            return {"q": _zeros_like(p, p.shape, torch.int8),
+                    "scale": _zeros_like(p, (*p.shape[:-1], 1),
+                                         torch.float32)}
+        return _zeros_like(p, p.shape, torch.float32)
 
     state = {
         "m": pytree.tree_map(moment, params),
@@ -130,11 +198,17 @@ def _sorted_leaves(tree):
 
 def _global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, summed in float32 one
-    slice at a time, the leaves in sorted key order."""
+    slice at a time, the leaves in sorted key order (a DTensor leaf's
+    local slices, each all-reduced over the mesh dimensions that split
+    it)."""
     total = None
-    for x in _sorted_leaves(tree):
+    for leaf in _sorted_leaves(tree):
+        groups = _split_groups(leaf)
+        x = _local(leaf)
         for sl in _slices(x):
             part = torch.sum(torch.square(x[sl].to(torch.float32)))
+            for g in groups:
+                torch.distributed.all_reduce(part, group=g)
             total = part if total is None else total + part
     if total is None:
         return torch.zeros((), dtype=torch.float32)
@@ -173,8 +247,14 @@ def adamw_update(grads, state, params, cfg: OptimConfig,
     master = state.get("master")
 
     with torch.no_grad(), record_function("craft::adamw"):
-        for p, g, m0, v0, w in _walk(params, grads, state["m"],
-                                     state["v"], master):
+        for pd, g, m0, v0, w in _walk(params, grads, state["m"],
+                                      state["v"], master):
+            groups = _split_groups(pd, pd.dim() - 1) if pd.dim() else []
+            p, g, w = _local(pd), _local(g), _local(w)
+            m0 = ({k: _local(t) for k, t in m0.items()} if _is_q(m0)
+                  else _local(m0))
+            v0 = ({k: _local(t) for k, t in v0.items()} if _is_q(v0)
+                  else _local(v0))
             for sl in _slices(p):
                 gf = g[sl].to(torch.float32) * clip
                 if _is_q(m0):
@@ -198,7 +278,7 @@ def adamw_update(grads, state, params, cfg: OptimConfig,
                 del wf
                 for mom, val in ((m0, m), (v0, vv)):
                     if _is_q(mom):
-                        q, s = _quantize(val)
+                        q, s = _quantize(val, groups)
                         mom["q"][sl].copy_(q)
                         mom["scale"][sl].copy_(s)
                     else:

@@ -21,6 +21,13 @@ entropy, as the reference does.  The forward runs under the trace span
 ``craft::forward`` (the backward's own spans are in the kernels' ops and
 the optimizer's in ``optim.adamw``).
 
+On a mesh (DTensor parameters and batch, under ``sharding.activations.
+mesh_context``) the same step runs on DTensors: the loss is made whole
+(all-reduced) before the gradients are taken, each gradient is pinned to
+its parameter's placements where it is produced (the reference's
+``constrain_tree`` on the gradients), and the metrics come back as plain
+tensors.
+
 Serving: ``make_prefill`` builds the KV/SSM caches from the prompt in one
 shot; ``make_decode_step`` advances one token.  They run under
 ``torch.no_grad``, not inference mode: a checkpoint restore writes into
@@ -41,6 +48,9 @@ from repro_torch.models import model as M
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import embed_apply
 from repro_torch.optim.adamw import OptimConfig, adamw_update
+from repro_torch.sharding.activations import (
+    constrain, is_dtensor, rows_reduce,
+)
 
 IGNORE = -100
 
@@ -96,7 +106,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def _ce_sums(logits, labels):
-    """(sum of NLL over non-IGNORE positions, count of those positions)."""
+    """(sum of NLL over non-IGNORE positions, count of those positions).
+    On a mesh each rank sums its own rows (``rows_reduce``)."""
+    if is_dtensor(logits):
+        return rows_reduce(_ce_sums, logits, labels)
     labels = labels.long()
     mask = (labels != IGNORE).to(torch.float32)
     safe = torch.where(labels == IGNORE, 0, labels)
@@ -121,7 +134,7 @@ def chunked_cross_entropy(hidden, labels, unembed_fn, chunk: int):
             dim=1)
 
     def body(h, y):
-        return _ce_sums(unembed_fn(h), y)
+        return _ce_sums(constrain(unembed_fn(h), "batch", "seq", "vocab"), y)
 
     record = torch.is_grad_enabled() and hidden.requires_grad
     nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -177,6 +190,27 @@ def _loss_fn(params, cfg: ModelConfig, scfg: TrainStepConfig, batch):
     return total, {"loss": loss, "aux": aux}
 
 
+def _whole(x):
+    """A DTensor made whole on every rank (partial sums all-reduced)."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def _plain(x):
+    """A DTensor's whole value as a plain tensor."""
+    return _whole(x).to_local() if is_dtensor(x) else x
+
+
+def _like(g, p):
+    """Gradient ``g`` on parameter ``p``'s placements."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: OptimConfig,
                     scfg: Optional[TrainStepConfig] = None):
     scfg = scfg or TrainStepConfig()
@@ -189,17 +223,20 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimConfig,
             with record_function("craft::forward"):
                 total, parts = _loss_fn(pytree.tree_unflatten(alias, spec),
                                         cfg, scfg, batch)
+            total = _whole(total)
             grads = torch.autograd.grad(total, alias, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
+        grads = [torch.zeros_like(p) if g is None else _like(g, p)
                  for p, g in zip(leaves, grads)]
         if gdtype is not None:
             grads = [g.to(gdtype) for g in grads]
-        parts = {k: v.detach() for k, v in parts.items()}
-        return total.detach(), parts, pytree.tree_unflatten(grads, spec)
+        parts = {k: _plain(v.detach()) for k, v in parts.items()}
+        return (_plain(total.detach()), parts,
+                pytree.tree_unflatten(grads, spec))
 
     def train_step(params, opt_state, batch):
         device = pytree.tree_leaves(params)[0].device
-        batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        batch = {k: v if is_dtensor(v) else torch.as_tensor(v).to(device)
+                 for k, v in batch.items()}
         if scfg.microbatches <= 1:
             loss, parts, grads = single_grads(params, batch)
         else:
@@ -237,7 +274,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimConfig,
 # serving
 # ==========================================================================
 def make_prefill(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    """prefill(params, tokens, [embeds]) -> (cache, last_logits).
+    """prefill(params, tokens, [embeds], [cache]) -> (cache, last_logits).
 
     ``max_len`` is the cache's length: it counts an ``embeds`` prefix's P
     positions beside the prompt and the generated tokens.  Only the final
@@ -246,8 +283,9 @@ def make_prefill(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     """
 
     @torch.no_grad()
-    def prefill(params, tokens, embeds=None):
-        cache = M.init_cache(cfg, batch, max_len, device=device)
+    def prefill(params, tokens, embeds=None, cache=None):
+        if cache is None:
+            cache = M.init_cache(cfg, batch, max_len, device=device)
         hidden, cache, _ = M.forward_hidden(
             params, cfg, tokens=tokens, embeds=embeds, cache=cache, pos0=0)
         logits = M.unembed(params, cfg, hidden[:, -1:])

@@ -340,9 +340,11 @@ def test_cuda_is_the_default_device(tmp_path):
 def test_port_imports_neither_jax_nor_the_reference():
     """Every module of the package, found by walking it, imports; the walk
     must find the training slice's modules, the Lanczos app, the examples,
-    the multi-process runtime, the elastic helpers and the record → replay →
-    tune tooling among them (``tests/test_torch_examples.py`` runs each
-    example and checks the same of the run)."""
+    the multi-process runtime, the elastic helpers, the record → replay →
+    tune tooling and the sharding layer (rules, constraints, meshes, the
+    dry-run's specs and CLI, the roofline, the elastic-restore example)
+    among them (``tests/test_torch_examples.py`` runs each example and
+    checks the same of the run)."""
     code = ("import importlib, pkgutil, sys, repro_torch; "
             "mods = [m.name for m in pkgutil.walk_packages("
             "repro_torch.__path__, 'repro_torch.')]; "
@@ -359,7 +361,12 @@ def test_port_imports_neither_jax_nor_the_reference():
             "'repro_torch.runtime.coordinator', "
             "'repro_torch.runtime.worker', 'repro_torch.core.elastic', "
             "'repro_torch.core.simulate', 'repro_torch.core.tune', "
-            "'repro_torch.top', 'repro_torch.tune'}; "
+            "'repro_torch.top', 'repro_torch.tune', "
+            "'repro_torch.sharding.logical', "
+            "'repro_torch.sharding.activations', "
+            "'repro_torch.launch.mesh', 'repro_torch.launch.specs', "
+            "'repro_torch.launch.dryrun', 'repro_torch.analysis.roofline', "
+            "'repro_torch.examples.elastic_restore'}; "
             "missing = sorted(need - set(mods)); "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "

@@ -871,3 +871,121 @@ def test_traced_chaos_loop_on_the_card_replays_exactly(cuda, tmp_path):
     cp2.close()
     assert cp2.version == cp.version
     assert all(torch.equal(state[k], live[k]) for k in state)
+
+
+# ------------------------------------------------- the sharding layer
+def _one_rank_mesh_worker(comm, port, base):
+    """A one-rank NCCL mesh on the card: the kernels through ``local_map``
+    on DTensors against the same calls on plain tensors, and a TINY train
+    step on the mesh against the mesh-free one, each torch.equal."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.activations import mesh_context
+    from repro_torch.sharding.logical import LogicalRules
+
+    torch.use_deterministic_algorithms(True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        dev = torch.device("cuda")
+        mesh = make_mesh((1, 1), ("data", "model"))
+        rules = LogicalRules(mesh)
+        gen = torch.Generator(device=dev).manual_seed(5)
+
+        def dt(x, *dims):
+            return distribute_tensor(x, mesh, rules.placements(
+                *dims, shape=tuple(x.shape)), src_data_rank=None)
+
+        out = {}
+        q = torch.randn((2, 8, 300, 64), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn((2, 2, 300, 64), generator=gen, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+        n0 = fa_kernel.flash_attention_cuda.launches
+        with mesh_context(rules):
+            got = fa_ops.attention(dt(q, "batch", "heads", None, None),
+                                   dt(k, "batch", "kv_heads", None, None),
+                                   dt(v, "batch", "kv_heads", None, None))
+        # the mesh call launched the kernel once
+        out["attention_launches"] = fa_kernel.flash_attention_cuda.launches - n0
+        out["attention"] = bool(torch.equal(got.to_local(),
+                                            fa_ops.attention(q, k, v)))
+        for name, shapes, dims in (
+                ("ssd", [(2, 400, 8, 16), (2, 400, 8, 16), (2, 400, 8, 16),
+                         (2, 400, 8), (8,), (2, 8, 16, 16)],
+                 [("batch", None, "ssm_heads", None)] * 3
+                 + [("batch", None, "ssm_heads"), ("ssm_heads",),
+                    ("batch", "ssm_heads", None, None)]),
+                ("s6", [(2, 400, 64), (2, 400, 16), (2, 400, 16),
+                        (2, 400, 64), (64, 16), (2, 64, 16)],
+                 [("batch", None, "ssm_inner"), ("batch", None, None),
+                  ("batch", None, None), ("batch", None, "ssm_inner"),
+                  ("ssm_inner", None), ("batch", "ssm_inner", None)])):
+            xs = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+            xs[3] = xs[3].abs() * 0.1
+            xs[4] = -xs[4].abs()
+            with mesh_context(rules):
+                y, h = scan_ops.selective_scan(
+                    *(dt(x, *d) for x, d in zip(xs, dims)), chunk=256)
+            y2, h2 = scan_ops.selective_scan(*xs, chunk=256)
+            out[name] = bool(torch.equal(y.to_local(), y2)
+                             and torch.equal(h.to_local(), h2))
+        for arch in ("h2o-danube-1.8b", "zamba2-2.7b"):
+            tc = train.TrainConfig(arch=arch, steps=2, global_batch=2,
+                                   seq_len=256, cp_freq=10, device="cuda")
+            a = train.run(tc, mesh=mesh, env=CraftEnv.capture(
+                {"CRAFT_CP_PATH": f"{base}/{arch}-mesh"}))
+            b = train.run(tc, env=CraftEnv.capture(
+                {"CRAFT_CP_PATH": f"{base}/{arch}-plain"}))
+            out[arch] = (a["losses"] == b["losses"] and all(
+                torch.equal(x.to_local(), y) for x, y in zip(
+                    torch.utils._pytree.tree_leaves(a["state"]["params"]),
+                    torch.utils._pytree.tree_leaves(b["state"]["params"]))))
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port():
+    from repro_torch.examples.elastic_restore import free_port
+
+    return free_port()
+
+
+def test_one_rank_mesh_on_the_card_equals_mesh_free(cuda, tmp_path):
+    """The kernels enter a DTensor program through ``local_map`` and give
+    the plain calls' bits (the attention kernel launched); a TINY
+    danube / zamba2 training run on a one-rank NCCL mesh equals the
+    mesh-free run bit for bit (in a worker process: the process group
+    stays out of the test process)."""
+    from repro_torch.runtime import Cluster
+
+    cluster = Cluster(n_procs=1, env_overrides={
+        "CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    try:
+        cluster.start(_one_rank_mesh_worker, _free_port(), str(tmp_path))
+        out = cluster.join(timeout=300)[0]
+    finally:
+        cluster.shutdown()
+    assert out["attention"] and out["attention_launches"] == 1
+    assert out["ssd"] and out["s6"]
+    assert out["h2o-danube-1.8b"] and out["zamba2-2.7b"]
+
+
+def test_elastic_restore_on_the_card(cuda, tmp_path):
+    """TINY danube's parameters as DTensors on a (2, 2) mesh over 4 worker
+    processes sharing the card (gloo), written with the device snapshot,
+    restored on shrink_mesh(2, 2) over 2 fresh processes bit for bit."""
+    from repro_torch.examples.elastic_restore import elastic_restore
+
+    out = elastic_restore(tmp_path, tiny=True, device="cuda",
+                          write_mesh=(2, 2), survivors=2, snapshot=True,
+                          timeout=300)
+    assert out["equal"]
+    assert all(r["mesh"] == (1, 2) for r in out["readers"])
+    assert sum(w["launches"]["snapshot"] for w in out["writers"]) > 0
+    assert sum(r["launches"]["checksum"] for r in out["readers"]) > 0

@@ -169,6 +169,38 @@ def test_a_tensor_never_crosses_the_connection():
         "allreduce: a torch.Tensor cannot cross")
 
 
+def _late_rank_zero(comm, base):
+    """Rank 0 opens its checkpoint a second after rank 1, which writes at
+    once: rank 1's staged files must outlive rank 0's sweep of torn
+    staging dirs.  Both restore in a fresh Checkpoint."""
+    from repro_torch.core import Box, Checkpoint, CraftEnv
+
+    env = CraftEnv.capture({"CRAFT_CP_PATH": base, "CRAFT_USE_SCR": "0"})
+    x = torch.arange(1024, dtype=torch.float32) + comm.rank
+    if comm.rank == 0:
+        time.sleep(1.0)
+    with Checkpoint("late", comm, env=env, device="cpu") as cp:
+        cp.add(f"x-{comm.rank}", Box(x))
+        cp.commit()
+        cp.update_and_write(1)
+    live = Box(torch.zeros_like(x))
+    with Checkpoint("late", comm, env=env, device="cpu") as cp:
+        cp.add(f"x-{comm.rank}", live)
+        cp.commit()
+        restored = cp.restart_if_needed()
+    return {"restored": bool(restored),
+            "equal": bool(torch.equal(live.value, x))}
+
+
+def test_a_late_rank_zero_sweeps_no_peer_files(tmp_path):
+    """Opening a PFS store barriers after rank 0's sweep (the reference's
+    does not: there a peer that stages first loses its files)."""
+    results = _run(Cluster(n_procs=2, env_overrides=ONE_THREAD),
+                   _late_rank_zero, str(tmp_path))
+    assert sorted(results) == [0, 1]
+    assert all(r["restored"] and r["equal"] for r in results.values())
+
+
 def _ref_problem(rcfg):
     """The reference's on-site term and start vector as numpy (the draws
     ``repro.apps.lanczos.run_lanczos`` makes), and its alphas and betas."""

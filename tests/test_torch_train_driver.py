@@ -112,9 +112,20 @@ def test_aft_zone_with_sim_comm(tmp_path):
     assert [r["final_step"] for r in results.values()] == [10, 10]
 
 
-def test_sequence_parallel_waits_for_the_sharding_slice():
-    with pytest.raises(NotImplementedError, match="sharding"):
-        train.run(_tc(steps=1, sequence_parallel=True))
+def test_sequence_parallel_waits_for_the_sharding_slice(tmp_path):
+    """``sequence_parallel`` runs (it waited for the sharding layer, which
+    is here now).  Without a mesh it changes nothing, as in the reference,
+    whose one-device mesh has no ``model`` axis: the run equals the one
+    without it bit for bit (the mesh runs with it on are
+    ``tests/test_torch_mesh_train.py``)."""
+    sp = train.run(_tc(steps=2, cp_freq=10, sequence_parallel=True),
+                   env=_env(tmp_path / "sp"))
+    plain = train.run(_tc(steps=2, cp_freq=10), env=_env(tmp_path / "plain"))
+    assert sp["losses"] == plain["losses"] and sp["final_step"] == 2
+    got, want = _flat(sp["state"]), _flat(plain["state"])
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
 
 
 # ------------------------------------------ train checkpoints across packages
