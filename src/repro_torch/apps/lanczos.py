@@ -42,7 +42,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import Box, Checkpoint
+from repro_torch.core import Box, Checkpoint, trace
 from repro_torch.core.elastic import hydrate_replacement
 
 
@@ -119,8 +119,9 @@ class LanczosResult:
     wall_s: float
     cp_stats: Dict
     restarted_at: int
-    # beyond the reference: each step's seconds (host clock; the step ends
-    # in a device-to-host read of α and β) and the final fence's seconds
+    # beyond the reference: each step's seconds (host clock, span
+    # ``craft::lanczos.step``: the step ends in a device-to-host read of α
+    # and β) and the final fence's seconds (``craft::lanczos.close``)
     iter_s: List[float] = dataclasses.field(default_factory=list)
     fence_s: float = 0.0
 
@@ -142,29 +143,32 @@ def _initial_state(cfg, n_iter, device, init):
 
 
 def _open_checkpoint(name, comm, env, device, state):
-    cp = Checkpoint(name, comm, env=env, device=device)
-    for k, v in state.items():
-        cp.add(k, v)
-    cp.commit()
+    with trace.TRACER.span("craft::lanczos.open", cp=name):
+        cp = Checkpoint(name, comm, env=env, device=device)
+        for k, v in state.items():
+            cp.add(k, v)
+        cp.commit()
     return cp
 
 
 def _iterate(cfg, eps, state, n_iter, cp, cp_freq, hook=None, stop_at=None,
              extra_work_s=0.0):
     """The Lanczos loop from ``state["it"]`` on; returns (each step's
-    seconds, whether it stopped at ``stop_at``)."""
+    seconds, whether it stopped at ``stop_at``).  The callers hold it in
+    span ``craft::lanczos.iterate``."""
     iter_s: List[float] = []
     it = state["it"].value
     while it < n_iter:
         if hook is not None:
             hook(it, cp)
-        t0 = time.perf_counter()
-        alpha, beta, vp, vc = lanczos_step(
-            cfg, eps, state["v_prev"].value, state["v_cur"].value,
-            state["betas"][it])
-        state["alphas"][it] = float(alpha)
-        state["betas"][it + 1] = float(beta)
-        iter_s.append(time.perf_counter() - t0)
+        with trace.TRACER.timed("craft::lanczos.step") as step:
+            alpha, beta, vp, vc = lanczos_step(
+                cfg, eps, state["v_prev"].value, state["v_cur"].value,
+                state["betas"][it])
+            with trace.TRACER.span("craft::lanczos.read"):
+                state["alphas"][it] = float(alpha)
+                state["betas"][it + 1] = float(beta)
+        iter_s.append(step.seconds)
         state["v_prev"].value = vp
         state["v_cur"].value = vc
         it += 1
@@ -209,25 +213,25 @@ def run_lanczos(
     (on-site term, unnormalized start vector) pair on ``device`` in place
     of the seeded draws.
     """
-    eps, state = _initial_state(cfg, n_iter, device, init)
-    cp = None
-    restarted_at = 0
-    if cp_freq:
-        cp = _open_checkpoint(cp_name, comm, env, device, state)
-        if cp.restart_if_needed():
-            restarted_at = state["it"].value
+    with trace.TRACER.span("craft::lanczos.solve"):
+        eps, state = _initial_state(cfg, n_iter, device, init)
+        cp = None
+        restarted_at = 0
+        if cp_freq:
+            cp = _open_checkpoint(cp_name, comm, env, device, state)
+            if cp.restart_if_needed():
+                restarted_at = state["it"].value
 
-    t0 = time.perf_counter()
-    iter_s, failed = _iterate(cfg, eps, state, n_iter, cp, cp_freq,
-                              stop_at=fail_at, extra_work_s=extra_work_s)
-    wall = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    stats = {}
-    if cp is not None:
-        cp.wait()
-        stats = dict(cp.stats)
-        cp.close()
-    fence_s = time.perf_counter() - t0
+        with trace.TRACER.timed("craft::lanczos.iterate") as loop:
+            iter_s, failed = _iterate(cfg, eps, state, n_iter, cp, cp_freq,
+                                      stop_at=fail_at,
+                                      extra_work_s=extra_work_s)
+        stats = {}
+        with trace.TRACER.timed("craft::lanczos.close") as fence:
+            if cp is not None:
+                cp.wait()
+                stats = dict(cp.stats)
+                cp.close()
     if failed:
         raise RuntimeError(f"injected failure at iteration {fail_at}")
 
@@ -235,8 +239,8 @@ def run_lanczos(
     return LanczosResult(
         eigenvalue=_ritz_min(state["alphas"], state["betas"], k),
         alphas=state["alphas"][:k], betas=state["betas"][:k],
-        iterations=k, wall_s=wall, cp_stats=stats, restarted_at=restarted_at,
-        iter_s=iter_s, fence_s=fence_s)
+        iterations=k, wall_s=loop.seconds, cp_stats=stats,
+        restarted_at=restarted_at, iter_s=iter_s, fence_s=fence.seconds)
 
 
 def reference_eigenvalue(cfg: GrapheneConfig, device="cpu",
@@ -268,18 +272,21 @@ def run_with_hook(cfg: GrapheneConfig, n_iter: int, cp_freq: int, comm, env,
     reference's {"eig", "wall_s", "stats", "resumed_from"} plus "rank",
     "alphas", "betas", "iter_s" and "hydrated" (the replacement's
     {"restored", "tier", "reseeded"}, else None)."""
-    eps, state = _initial_state(cfg, n_iter, device, init)
-    cp = _open_checkpoint("aftlan", comm, env, device, state)
-    hydrated = hydrate_replacement(cp) if comm.is_replacement() else None
-    restarted = (hydrated["restored"] if hydrated is not None
-                 else cp.restart_if_needed())
-    t0 = time.perf_counter()
-    redo_iters = state["it"].value if restarted else 0
-    try:
-        iter_s, _ = _iterate(cfg, eps, state, n_iter, cp, cp_freq, hook=hook)
-        cp.wait()
-    finally:
-        cp.close()
+    with trace.TRACER.span("craft::lanczos.solve"):
+        eps, state = _initial_state(cfg, n_iter, device, init)
+        cp = _open_checkpoint("aftlan", comm, env, device, state)
+        hydrated = hydrate_replacement(cp) if comm.is_replacement() else None
+        restarted = (hydrated["restored"] if hydrated is not None
+                     else cp.restart_if_needed())
+        t0 = time.perf_counter()
+        redo_iters = state["it"].value if restarted else 0
+        try:
+            with trace.TRACER.span("craft::lanczos.iterate"):
+                iter_s, _ = _iterate(cfg, eps, state, n_iter, cp, cp_freq,
+                                     hook=hook)
+            cp.wait()
+        finally:
+            cp.close()
     k = state["it"].value
     return {
         "eig": _ritz_min(state["alphas"], state["betas"], k),

@@ -173,12 +173,11 @@ class AsyncWriter:
 
     def wait(self) -> None:
         """Block until all submitted jobs finished; re-raise writer errors."""
-        t0 = time.perf_counter() if metrics.REGISTRY.enabled else 0.0
-        with self._cv:
-            while self._pending > 0:
-                self._cv.wait()
-        if t0:
-            metrics.observe("async_fence_seconds", time.perf_counter() - t0)
+        with trace.TRACER.timed("craft::cp.fence") as sp:
+            with self._cv:
+                while self._pending > 0:
+                    self._cv.wait()
+        metrics.observe("async_fence_seconds", sp.seconds)
         self._raise_pending_error()
 
     # -- stall watchdog --------------------------------------------------------

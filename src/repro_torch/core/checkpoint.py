@@ -176,7 +176,11 @@ class Checkpoint:
         # of the state in pinned host memory) is enough.
         kw.setdefault("double_buffer", self.env.write_async
                       or self.env.write_async_zero_copy)
-        self._map[key] = checkpointables.wrap(obj, **kw)
+        with trace.TRACER.span("craft::cp.add", cp=self.name, key=key) as sp:
+            item = checkpointables.wrap(obj, **kw)
+            if sp.armed:
+                sp.set(bytes=item.nbytes())
+        self._map[key] = item
 
     # --------------------------------------------------------------- commit
     def commit(self) -> None:
@@ -447,11 +451,20 @@ class Checkpoint:
         propagate (the caller keeps the previous version; the in-memory
         version counter does not advance).
         """
+        with trace.TRACER.timed("craft::cp.write", cp=self.name,
+                                version=version) as sp:
+            wrote_bytes = self._write_tiers(version, decision)
+        self.stats.inc("writes")
+        self.stats.inc("bytes_written", wrote_bytes)
+        self.stats.inc("write_seconds", sp.seconds)
+
+    def _write_tiers(self, version: int, decision) -> int:
+        """The tier writes of :meth:`_write_version`; returns the version's
+        logical bytes."""
         from repro_torch.core import health as health_mod
         from repro_torch.core.chaos import ChaosCrash
         from repro_torch.core.mem_level import MemTierError
 
-        t0 = time.perf_counter()
         wrote_bytes = sum(item.nbytes() for item in self._map.values())
         # the policy picked the tier set; a missing decision (internal
         # callers) falls back to the legacy every-tier + pfs_every gating
@@ -488,41 +501,43 @@ class Checkpoint:
             # a degraded slot's next write is self-contained (no delta base
             # from before the outage) — force full for routed targets too
             tier_full = force_full or routed or slot not in slots
-            ts = time.perf_counter()
-            try:
-                io_stats = self._write_store_guarded(
-                    store, version, slot, tier_full)
-            except MemTierError:
-                # the RAM tier is best-effort write-through: a collective
-                # budget refusal skips it, the durable tiers still land
-                self.stats.inc("mem_skipped")
-                continue
-            except ChaosCrash:
-                raise             # simulated process death: no cleanup
-            except Exception as exc:
-                if isinstance(exc, OSError) and exc.errno == errno.ENOSPC \
-                        and getattr(store, "retire_for_space",
-                                    lambda: False)():
-                    self.stats.inc("enospc_retires")
-                    try:
-                        io_stats = self._write_store_guarded(
-                            store, version, slot, tier_full)
-                    except ChaosCrash:
-                        raise
-                    except Exception as exc2:
-                        exc = exc2
-                    else:
-                        exc = None
-                if exc is not None:
-                    last_exc = exc
-                    if isinstance(exc, health_mod.WriteDeadlineExceeded):
-                        self.stats.inc("abandoned_writes")
-                    if health is not None and health.record_failure(exc):
-                        self.stats.inc("breaker_trips")
-                        trace.TRACER.emit("breaker", slot=slot)
-                    self._note_degraded(slot)
-                    routed = True
+            with trace.TRACER.timed("craft::cp.tier_write", cp=self.name,
+                                    version=version, slot=slot) as ts:
+                try:
+                    io_stats = self._write_store_guarded(
+                        store, version, slot, tier_full)
+                except MemTierError:
+                    # the RAM tier is best-effort write-through: a collective
+                    # budget refusal skips it, the durable tiers still land
+                    self.stats.inc("mem_skipped")
                     continue
+                except ChaosCrash:
+                    raise             # simulated process death: no cleanup
+                except Exception as exc:
+                    if isinstance(exc, OSError) and exc.errno == errno.ENOSPC \
+                            and getattr(store, "retire_for_space",
+                                        lambda: False)():
+                        self.stats.inc("enospc_retires")
+                        try:
+                            io_stats = self._write_store_guarded(
+                                store, version, slot, tier_full)
+                        except ChaosCrash:
+                            raise
+                        except Exception as exc2:
+                            exc = exc2
+                        else:
+                            exc = None
+                    if exc is not None:
+                        last_exc = exc
+                        if isinstance(exc, health_mod.WriteDeadlineExceeded):
+                            self.stats.inc("abandoned_writes")
+                        if health is not None and health.record_failure(exc):
+                            self.stats.inc("breaker_trips")
+                            trace.TRACER.emit("breaker", slot=slot)
+                        self._note_degraded(slot)
+                        routed = True
+                        continue
+                seconds = ts.stop()
             # tier write landed
             if health is not None:
                 health.record_success()
@@ -532,12 +547,12 @@ class Checkpoint:
             routed = False
             self.stats.inc(f"{slot}_writes")
             # feed the scheduler's per-tier cost model (EWMA on the tier)
-            store.record_write(time.perf_counter() - ts, wrote_bytes)
+            store.record_write(seconds, wrote_bytes)
             trace.TRACER.emit(
                 "tier_write",
                 version=version,
                 slot=slot,
-                seconds=round(time.perf_counter() - ts, 6),
+                seconds=round(seconds, 6),
                 nbytes=wrote_bytes,
                 phys_bytes=(io_stats or {}).get("bytes", 0),
                 chunks=(io_stats or {}).get("chunks", 0),
@@ -551,9 +566,7 @@ class Checkpoint:
             raise last_exc
         # Parent published ⇒ children are now inconsistent (paper Table 1).
         nested.GLOBAL_REGISTRY.invalidate_children(self)
-        self.stats.inc("writes")
-        self.stats.inc("bytes_written", wrote_bytes)
-        self.stats.inc("write_seconds", time.perf_counter() - t0)
+        return wrote_bytes
 
     def _note_degraded(self, slot: str) -> None:
         """Bookkeeping for a tier write that did not land on its tier."""
@@ -730,6 +743,12 @@ class Checkpoint:
         ``restartIfNeeded(&iteration)``; the iteration should normally simply
         be one of the added checkpointables.
         """
+        with trace.TRACER.span("craft::cp.restart", cp=self.name) as sp:
+            restored = self._restart()
+            sp.set(restored=restored)
+        return restored
+
+    def _restart(self) -> bool:
         self._require_committed()
         if not self.env.enable or not self.env.read_cp_on_restart:
             return False
@@ -823,7 +842,13 @@ class Checkpoint:
     def _read_from_store(self, store, slot, label, version, base_ctx):
         """One tier's restore attempt; returns None on success, else the
         error string to report (the caller may repair and retry once)."""
-        ts = time.perf_counter()
+        with trace.TRACER.timed("craft::cp.restore", cp=self.name,
+                                version=version, slot=slot) as sp:
+            return self._read_tier(store, slot, label, version, base_ctx, sp)
+
+    def _read_tier(self, store, slot, label, version, base_ctx, sp):
+        """:meth:`_read_from_store` inside its span ``sp``, whose end is the
+        restore's one clock read."""
         try:
             # may trigger replica / partner / XOR / RS recovery; an
             # unrecoverable tier falls through to the next one (the
@@ -878,9 +903,11 @@ class Checkpoint:
             self.stats["tier_reads"].get(label, 0) + 1
         self.stats["restore_read_bytes"] = \
             (ctx.io_stats or {}).get("read_bytes", 0)
+        if sp.armed:
+            sp.set(bytes=self.nbytes())
+        seconds = sp.stop()
         metrics.inc("restores", slot=slot)
-        metrics.observe("restore_seconds", time.perf_counter() - ts,
-                        slot=slot)
+        metrics.observe("restore_seconds", seconds, slot=slot)
         metrics.inc("restore_read_bytes",
                     self.stats["restore_read_bytes"], slot=slot)
         trace.TRACER.emit(
@@ -888,7 +915,7 @@ class Checkpoint:
             version=version,
             tier=label,
             slot=slot,
-            seconds=round(time.perf_counter() - ts, 6),
+            seconds=round(seconds, 6),
             read_bytes=self.stats["restore_read_bytes"],
         )
         if slot == "mem" and self.env.elastic_hydrate \

@@ -41,7 +41,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from repro_torch.core.cpbase import CheckpointError, CpBase, IOContext
-from repro_torch.core import reshard, storage, tiers
+from repro_torch.core import reshard, storage, tiers, trace
 from repro_torch.core.device_snapshot import DeviceSnapshotter, host_copies
 from repro_torch.sharding.activations import is_dtensor
 
@@ -209,13 +209,14 @@ def _restored_dtensor(ctx: IOContext, meta: dict, sources, live, where):
                               storage._dtype_from_name(meta["dtype"]),
                               sources, where, extent=ext)
     t = storage.as_tensor(block, meta["dtype"])
-    if local.dtype == t.dtype:
-        with torch.no_grad():
-            local.copy_(t)
-        return live
-    return DTensor.from_local(t.to(local.device), live.device_mesh,
-                              live.placements, run_check=False,
-                              shape=live.shape, stride=live.stride())
+    with trace.TRACER.span("craft::cp.h2d", bytes=block.nbytes):
+        if local.dtype == t.dtype:
+            with torch.no_grad():
+                local.copy_(t)
+            return live
+        return DTensor.from_local(t.to(local.device), live.device_mesh,
+                                  live.placements, run_check=False,
+                                  shape=live.shape, stride=live.stride())
 
 
 def _restored_tensor(host: np.ndarray, dtype_name: str, live,
@@ -223,21 +224,23 @@ def _restored_tensor(host: np.ndarray, dtype_name: str, live,
     """Move a restored host array onto the live tensor: copied in place when
     shape and dtype match, else a new tensor on the live tensor's device
     (``ctx.device`` when there is no live tensor).  A read-only host array
-    (the memory tier's resident copy) is never aliased by the result."""
+    (the memory tier's resident copy) is never aliased by the result.
+    Span ``craft::cp.h2d``: the copy."""
     t = storage.as_tensor(host, dtype_name)
-    if isinstance(live, torch.Tensor):
-        if tuple(live.shape) != tuple(t.shape):
-            raise CheckpointError(
-                f"shape mismatch: stored {tuple(t.shape)} vs live "
-                f"{tuple(live.shape)}")
-        if live.dtype == t.dtype:
+    if isinstance(live, torch.Tensor) \
+            and tuple(live.shape) != tuple(t.shape):
+        raise CheckpointError(
+            f"shape mismatch: stored {tuple(t.shape)} vs live "
+            f"{tuple(live.shape)}")
+    with trace.TRACER.span("craft::cp.h2d", bytes=host.nbytes):
+        if isinstance(live, torch.Tensor) and live.dtype == t.dtype:
             with torch.no_grad():
                 live.copy_(t)
             return live
-    if not host.flags.writeable:
-        t = t.clone()
-    return t.to(live.device if isinstance(live, torch.Tensor)
-                else ctx.device)
+        if not host.flags.writeable:
+            t = t.clone()
+        return t.to(live.device if isinstance(live, torch.Tensor)
+                    else ctx.device)
 
 
 # --------------------------------------------------------------------------

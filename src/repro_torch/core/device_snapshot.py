@@ -41,7 +41,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import metrics
+from repro_torch.core import metrics, trace
 from repro_torch.kernels.snapshot import ops as snapshot_ops
 
 _LANES = 128
@@ -69,20 +69,24 @@ def _pack_words(x: torch.Tensor, n_chunks: int, wpc: int,
 def host_copies(tensors: list) -> list:
     """Private contiguous CPU copies of ``tensors``: every device→host copy
     is queued into pinned memory and each device's stream is synchronised
-    once, so the copies are complete when this returns."""
+    once, so the copies are complete when this returns (span
+    ``craft::cp.d2h``, ended after the synchronisation)."""
     out, sync = [], set()
-    for t in tensors:
-        t = t.detach()
-        if t.device.type == "cpu":
-            out.append(t.clone(memory_format=torch.contiguous_format))
-            continue
-        h = torch.empty(t.shape, dtype=t.dtype,
-                        pin_memory=t.device.type == "cuda")
-        h.copy_(t, non_blocking=True)
-        out.append(h)
-        sync.add(t.device)
-    for dev in sync:
-        torch.cuda.current_stream(dev).synchronize()
+    with trace.TRACER.span("craft::cp.d2h") as sp:
+        for t in tensors:
+            t = t.detach()
+            if t.device.type == "cpu":
+                out.append(t.clone(memory_format=torch.contiguous_format))
+                continue
+            h = torch.empty(t.shape, dtype=t.dtype,
+                            pin_memory=t.device.type == "cuda")
+            h.copy_(t, non_blocking=True)
+            out.append(h)
+            sync.add(t.device)
+        for dev in sync:
+            torch.cuda.current_stream(dev).synchronize()
+        if sp.armed:
+            sp.set(bytes=sum(h.numel() * h.element_size() for h in out))
     return out
 
 

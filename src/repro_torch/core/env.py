@@ -175,8 +175,10 @@ class CraftEnv:
     # --- live telemetry plane (core/metrics.py / core/telemetry.py) --------
     metrics: bool                    # CRAFT_METRICS: arm the process-global
                                      # metrics registry (counters/gauges/
-                                     # histograms); unset = every hook is a
-                                     # single no-op call (default off)
+                                     # histograms) and, with no trace file,
+                                     # the memory span recorder; unset =
+                                     # every hook is a single no-op call
+                                     # (default off)
     metrics_port: int                # CRAFT_METRICS_PORT: serve Prometheus
                                      # text at /metrics and JSON at /healthz
                                      # on this port (0 picks an ephemeral

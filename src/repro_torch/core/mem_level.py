@@ -54,13 +54,12 @@ import os
 import shutil
 import tempfile
 import threading
-import time as _time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.core import metrics, storage, tiers
+from repro_torch.core import metrics, storage, tiers, trace
 from repro_torch.core.cpbase import CheckpointError, IOContext
 from repro_torch.core.tiers import StorageTier
 from repro_torch.kernels.checksum import ops as checksum_ops
@@ -446,7 +445,12 @@ class MemStore(StorageTier):
 
     def publish(self, staged: Path, version: int,
                 extra_meta: Optional[dict] = None) -> None:
-        t0 = _time.perf_counter()
+        with trace.TRACER.timed("craft::cp.publish", cp=self.name,
+                                version=version, slot="mem") as sp:
+            self._publish(staged, version)
+        metrics.observe("publish_seconds", sp.seconds, tier="mem")
+
+    def _publish(self, staged: Path, version: int) -> None:
         # fabric coverage for the chaos engine: an injected fault here makes
         # the RAM tier misbehave exactly like a failing fabric insert would
         self._chaos_check("fabric", path=staged)
@@ -476,8 +480,6 @@ class MemStore(StorageTier):
         kept = sorted(self.fabric.versions(self.name))[-self.keep_versions:]
         self.fabric.prune(self.name, self.rank, kept)
         shutil.rmtree(staged, ignore_errors=True)
-        metrics.observe("publish_seconds", _time.perf_counter() - t0,
-                        tier="mem")
 
     def _slurp(self, staged: Path
                ) -> Tuple[Dict[str, _MemEntry], Optional[Exception]]:

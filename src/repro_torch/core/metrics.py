@@ -48,6 +48,8 @@ import threading
 import time
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
+from repro_torch.core import trace
+
 __all__ = [
     "REGISTRY", "inc", "set_gauge", "observe", "enabled",
     "install", "uninstall", "maybe_install_from_env",
@@ -201,16 +203,24 @@ def install() -> "MetricsRegistry":
 
 
 def uninstall() -> None:
-    """Back to the no-op registry (tests; end of a metered benchmark)."""
+    """Back to the no-op registry (tests; end of a metered benchmark), and
+    the memory span recorder armed beside it back to the no-op tracer."""
     global REGISTRY
     REGISTRY = _NullRegistry()
+    if isinstance(trace.TRACER, trace.MemoryTracer):
+        trace.uninstall()
 
 
 def maybe_install_from_env(env) -> None:
     """Arm the registry when the captured env asks for it
-    (``Checkpoint.commit()`` calls this — the read-once contract)."""
+    (``Checkpoint.commit()`` calls this — the read-once contract), and,
+    unless a trace file is armed, the memory span recorder beside it: the
+    newest spans kept in the process for an in-process reader (the
+    benchmark's per-layer readers; ``trace.kept``)."""
     if getattr(env, "metrics", False):
         install()
+        if not trace.enabled():
+            trace.install_memory()
 
 
 def snapshot() -> dict:

@@ -45,11 +45,10 @@ from __future__ import annotations
 
 import json
 import shutil
-import time as _time
 from pathlib import Path
 from typing import Dict, List, Optional
 
-from repro_torch.core import erasure, metrics, storage, tiers
+from repro_torch.core import erasure, metrics, storage, tiers, trace
 from repro_torch.core.cpbase import CheckpointError
 from repro_torch.core.tiers import StorageTier
 from repro_torch.kernels.xor_parity import ops as xor_ops
@@ -139,7 +138,13 @@ class NodeStore(StorageTier):
         self._local.abort(staged)
 
     def publish(self, staged: Path, version: int, extra_meta: Optional[dict] = None) -> None:
-        t0 = _time.perf_counter()
+        with trace.TRACER.timed("craft::cp.publish", cp=self.name,
+                                version=version, slot="node") as sp:
+            self._publish(staged, version, extra_meta)
+        metrics.observe("publish_seconds", sp.seconds, tier="node")
+
+    def _publish(self, staged: Path, version: int,
+                 extra_meta: Optional[dict]) -> None:
         self._chaos_check("publish", path=staged)
         self.comm.barrier()          # all ranks wrote their node-local files
         if self.is_leader:
@@ -156,8 +161,6 @@ class NodeStore(StorageTier):
                 self._chaos_check("replicate", path=staged)
                 erasure.publish_rs(self, version)
         self.comm.barrier()          # redundancy data in place
-        metrics.observe("publish_seconds", _time.perf_counter() - t0,
-                        tier="node")
 
     def _publish_partner(self, version: int) -> None:
         src = self._local.version_dir(version)

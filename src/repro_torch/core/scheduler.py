@@ -521,8 +521,6 @@ class CheckpointPolicy:
         if changed:
             self.stats["online_retunes"] += 1
             metrics.inc("policy_retunes")
-            trace.TRACER.emit("retune", cadence={
-                s: self._cadence[s] for s in self._chain})
 
     # ------------------------------------------------------------ internals
     def _emit(self, d: Decision) -> Decision:

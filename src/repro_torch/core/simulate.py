@@ -219,8 +219,8 @@ def replay(events: List[dict],
             policy.notify_restore()
         elif kind == "recovery":
             policy.reset_estimators()
-        # config (first consumed above), tier_cost (duplicate of
-        # tier_write), breaker/failure/kill/retune: no policy-side input
+        # config (first consumed above), breaker/failure/kill (and
+        # the reference's tier_cost and retune): no policy-side input
 
     return ReplayReport(
         sim_decisions=sim, recorded_decisions=rec, mismatches=mismatches,

@@ -75,7 +75,7 @@ try:  # optional transparent compression (beyond-paper extension)
 except ImportError:  # pragma: no cover
     _zstd = None
 
-from repro_torch.core import tiers
+from repro_torch.core import tiers, trace
 from repro_torch.core.cpbase import CheckpointError, IOContext
 from repro_torch.core.tiers import StorageTier, fsync_dir  # re-export (legacy API)
 
@@ -254,7 +254,7 @@ def run_jobs(jobs, ctx: IOContext) -> list:
     """Run independent IO jobs through ``ctx.fanout`` when available, else
     inline — the single dispatch point for per-array and per-chunk fanout."""
     if ctx.fanout is not None and len(jobs) > 1:
-        return ctx.fanout(jobs)
+        return ctx.fanout(trace.TRACER.carry(jobs))
     return [job() for job in jobs]
 
 

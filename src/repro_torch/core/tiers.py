@@ -29,7 +29,7 @@ import shutil
 from pathlib import Path
 from typing import List, Optional, Set, Tuple
 
-from repro_torch.core import metrics, trace
+from repro_torch.core import metrics
 
 _TMP_PREFIX = ".tmp-"
 _VERSION_PREFIX = "v-"
@@ -306,22 +306,10 @@ class StorageTier(abc.ABC):
         """Feed one observed version-write duration into this tier's cost
         model (called by ``Checkpoint`` around every landed write; the
         scheduler consumes the estimate via :meth:`write_cost`)."""
-        trace.TRACER.emit("tier_cost", tier=self.label,
-                          seconds=seconds, nbytes=nbytes)
         # one choke point covers every tier's write latency/throughput
         metrics.inc("tier_writes", tier=self.label)
         metrics.inc("tier_write_bytes", nbytes, tier=self.label)
         metrics.observe("tier_write_seconds", seconds, tier=self.label)
-        stats = getattr(self, "io_stats", None)
-        if stats is None:
-            stats = self.io_stats = {
-                "writes": 0, "write_seconds": 0.0,
-                "last_write_seconds": 0.0, "bytes": 0,
-            }
-        stats["writes"] += 1
-        stats["write_seconds"] += seconds
-        stats["last_write_seconds"] = seconds
-        stats["bytes"] += nbytes
         prev = getattr(self, "_cost_ewma", None)
         self._cost_ewma = seconds if prev is None else (
             (1.0 - self.COST_ALPHA) * prev + self.COST_ALPHA * seconds

@@ -28,13 +28,34 @@ kind               fields (beyond ``t``, seconds since trace start)
 ``failure``        the collective engine observed one fail-stop
 ``kill``           a fault injector killed ``rank`` (SimWorld)
 ``recovery``       an AFT recovery reset live policies (epoch bump)
-``retune``         online re-tuning replaced cadences: ``cadence`` map
 =================  =======================================================
+
+Spans: ``with TRACER.span("craft::cp.restore", cp=..., version=...):``
+times a region on ``time.perf_counter_ns`` (the clock the benchmark's
+device trace is placed by) and records ``(name, start_ns, end_ns, parent,
+fields)``, ``parent`` the id of the enclosing span on the same thread, so
+a span's self time is its duration less its children's.
+``TRACER.timed(...)`` is the same span for a place that reads its own
+duration anyway (``.stop()`` or ``.seconds``, idempotent): disarmed, it
+still reads the clock, once at each end, and records nothing.  The span
+names, their fields and the metrics that read them are listed in
+``PERF.md``.  A span of an asynchronous CUDA launch times the enqueue; no
+span synchronises the card.
+
+Recorders: :func:`install` writes the events above as JSONL
+(``CRAFT_TRACE``) and keeps no spans: the events already carry the
+durations the replayer reads.  :func:`install_memory` keeps the newest
+spans and events in memory up to a cap, counting the older ones it drops,
+with nothing written to disk; :func:`kept` reads them in the process and
+:func:`drain` hands them back.  ``CRAFT_METRICS`` arms it beside the
+metrics registry when no trace file is armed
+(:func:`repro_torch.core.metrics.maybe_install_from_env`).
 
 Overhead contract: when ``CRAFT_TRACE`` is unset the module-level
 :data:`TRACER` stays the no-op :class:`_NullTracer` — every hook is a
 single dynamic call that immediately returns, no branching, no string
-formatting, no clock reads (``benchmarks/cr_overhead.py trace_overhead``
+formatting, no clock reads (``span`` hands back one shared no-op object:
+no clock, no lock, no list) (``benchmarks/cr_overhead.py trace_overhead``
 keeps the armed-vs-off delta on the scoreboard).  Hooks must therefore
 pass only cheap, already-computed values.
 
@@ -45,15 +66,128 @@ restarted job extends its predecessor's trace.
 """
 from __future__ import annotations
 
+import collections
+import itertools
 import json
 import os
 import threading
 import time
-from typing import Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 __all__ = [
-    "TRACER", "emit", "enabled", "install", "uninstall", "env_snapshot",
+    "TRACER", "emit", "enabled", "install", "install_memory", "kept",
+    "drain", "uninstall", "env_snapshot", "SpanRecord", "EventRecord",
 ]
+
+_now_ns = time.perf_counter_ns
+_span_ids = itertools.count(1)
+
+
+class SpanRecord(NamedTuple):
+    """One finished span: ``parent`` is the id of the span that enclosed
+    it on its thread (None at the top)."""
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: Optional[int]
+    fields: dict
+    id: int
+
+
+class EventRecord(NamedTuple):
+    """One :func:`emit` kept by the memory recorder."""
+    kind: str
+    t_ns: int
+    fields: dict
+
+
+class _NullSpan:
+    """The disarmed tracer's span: one shared object; it reads no clock,
+    takes no lock and keeps nothing."""
+
+    __slots__ = ()
+    armed = False
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **fields) -> None:
+        return None
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _Clock:
+    """The disarmed tracer's ``timed``: the caller's own timer, read once at
+    each end; nothing is recorded."""
+
+    __slots__ = ("t0", "t1")
+    armed = False
+
+    def __enter__(self):
+        self.t1 = None
+        self.t0 = _now_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+        return False
+
+    def stop(self) -> float:
+        """End the span (once; later calls change nothing) and return its
+        seconds."""
+        if self.t1 is None:
+            self.t1 = _now_ns()
+        return (self.t1 - self.t0) * 1e-9
+
+    @property
+    def seconds(self) -> float:
+        return (self.t1 - self.t0) * 1e-9
+
+    def set(self, **fields) -> None:
+        return None
+
+
+class _Span(_Clock):
+    """A span of an armed recorder: on its thread's stack from enter to
+    stop, handed to the recorder when it stops."""
+
+    __slots__ = ("_rec", "_on", "name", "fields", "id", "parent")
+    armed = True
+
+    def __init__(self, rec, name: str, fields: dict):
+        self._rec = rec
+        self.name = name
+        self.fields = fields
+
+    def __enter__(self):
+        self._on = stack = self._rec._stack()
+        self.parent = stack[-1].id if stack else None
+        self.id = next(_span_ids)
+        stack.append(self)
+        self.t1 = None
+        self.t0 = _now_ns()
+        return self
+
+    def stop(self) -> float:
+        if self.t1 is None:
+            self.t1 = _now_ns()
+            stack = self._on
+            if stack and stack[-1] is self:
+                stack.pop()
+            elif self in stack:
+                stack.remove(self)
+            # a plain tuple here; drain() makes it a SpanRecord
+            self._rec._keep((self.name, self.t0, self.t1, self.parent,
+                             self.fields, self.id))
+        return (self.t1 - self.t0) * 1e-9
+
+    def set(self, **fields) -> None:
+        self.fields.update(fields)
 
 
 class _NullTracer:
@@ -65,7 +199,90 @@ class _NullTracer:
     def emit(self, kind: str, **fields) -> None:  # pragma: no cover - trivial
         return None
 
+    def span(self, name: str, **fields) -> _NullSpan:
+        return _NULL_SPAN
+
+    def timed(self, name: str, **fields) -> _Clock:
+        return _Clock()
+
+    def carry(self, jobs: list) -> list:
+        return jobs
+
     def close(self) -> None:  # pragma: no cover - trivial
+        return None
+
+
+class MemoryTracer:
+    """Keeps the newest ``cap`` spans and events, on ``perf_counter_ns``,
+    in the order they ended; ``dropped`` counts the older ones pushed out.
+    A thread's open spans are on a stack of its own."""
+
+    enabled = True
+    path = None
+
+    def __init__(self, cap: int):
+        self.cap = int(cap)
+        self.records: collections.deque = collections.deque(maxlen=self.cap)
+        self.dropped = 0
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def _stack(self) -> list:
+        try:
+            return self._local.stack
+        except AttributeError:
+            self._local.stack = []
+            return self._local.stack
+
+    def span(self, name: str, **fields) -> _Span:
+        return _Span(self, name, fields)
+
+    timed = span
+
+    def carry(self, jobs: list) -> list:
+        """``jobs`` made to open their spans under this thread's current
+        span, whichever thread of a pool runs them."""
+        stack = self._stack()
+        if not stack:
+            return jobs
+        parent = stack[-1]
+
+        def under(job):
+            def run():
+                mine = self._stack()
+                mine.append(parent)
+                try:
+                    return job()
+                finally:
+                    mine.remove(parent)
+            return run
+
+        return [under(job) for job in jobs]
+
+    def _keep(self, rec: tuple) -> None:
+        with self._lock:
+            if len(self.records) == self.cap:
+                self.dropped += 1
+            self.records.append(rec)
+
+    def emit(self, kind: str, **fields) -> None:
+        self._keep(EventRecord(kind, _now_ns(), fields))
+
+    def kept(self) -> list:
+        with self._lock:
+            out = list(self.records)
+        return [r if isinstance(r, EventRecord) else SpanRecord._make(r)
+                for r in out]
+
+    def drain(self) -> Tuple[list, int]:
+        with self._lock:
+            out, dropped = list(self.records), self.dropped
+            self.records.clear()
+            self.dropped = 0
+        return [r if isinstance(r, EventRecord) else SpanRecord._make(r)
+                for r in out], dropped
+
+    def close(self) -> None:
         return None
 
 
@@ -74,10 +291,13 @@ class JsonlTracer:
 
     ``t`` is seconds since the tracer was installed on the shared monotonic
     clock, so events from every thread (main loop, async writer, sim ranks)
-    land on one comparable timeline.
+    land on one comparable timeline.  Its spans are the disarmed ones.
     """
 
     enabled = True
+    span = _NullTracer.span
+    timed = _NullTracer.timed
+    carry = _NullTracer.carry
 
     def __init__(self, path: str, clock=time.monotonic):
         self.path = str(path)
@@ -142,6 +362,33 @@ def install(path: str) -> None:
         return
     old, TRACER = TRACER, JsonlTracer(path)
     old.close()
+
+
+def install_memory(cap: int = 1 << 16) -> None:
+    """Arm the memory recorder: the newest ``cap`` spans and events kept,
+    written nowhere (:func:`kept` reads them, :func:`drain` hands them
+    back)."""
+    global TRACER
+    old, TRACER = TRACER, MemoryTracer(cap)
+    old.close()
+
+
+def kept() -> List[object]:
+    """What the memory recorder holds, in the order it ended, left in
+    place; [] when it is not the tracer armed."""
+    if isinstance(TRACER, MemoryTracer):
+        return TRACER.kept()
+    return []
+
+
+def drain() -> Tuple[List[object], int]:
+    """(records, dropped): what the memory recorder held since it was armed
+    or last drained, in the order they ended, and how many older ones it
+    dropped to stay within its cap; ([], 0) when it is not the tracer
+    armed."""
+    if isinstance(TRACER, MemoryTracer):
+        return TRACER.drain()
+    return [], 0
 
 
 def uninstall() -> None:
