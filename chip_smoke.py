@@ -7,7 +7,8 @@ Phases, each printing one JSON line:
 
 1. build   — compile the hand-written CUDA kernels (``checksum``,
    ``snapshot``, ``xor_reduce``, ``gf_matmul``, ``flash_attention``,
-   ``ssd_scan`` and ``s6_scan``: six sources, the two scans share one)
+   ``ssd_scan``, ``s6_scan`` and the fused Lanczos step: seven sources,
+   the two scans share one)
    from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, all sources
    at once; print the build seconds and the card.
 2. kernels — every kernel against its plain PyTorch version on the card,
@@ -44,7 +45,10 @@ Phases, each printing one JSON line:
    L 2048; GQA 4 with a window at L 1024) in bf16 and float32, and the
    scan Function, whose forward takes the chunked route at every L, at
    both models' widths (80 x 64 x 64, 8192 x 16; L 1024, and L 40 in one
-   ragged chunk), against the plain versions' autograd in float32.
+   ragged chunk), against the plain versions' autograd in float32.  The
+   fused Lanczos step at the lanczos phase's lattice (8192 x 8192 x 2,
+   float32) against the application's plain route (α, β and v_new within
+   1e-6), timed beside it.
 3. main    — the paper's Listing-2 loop through ``repro_torch.core.Checkpoint``
    on the full parameter set of h2o-danube-1.8b (configs/h2o_danube_1p8b.py:
    24 layers, d_model 2560, 32/8 heads of 80, d_ff 6912, vocab 32000,
@@ -104,7 +108,8 @@ Phases, each printing one JSON line:
    writes), rank 0 fail-stopped by ``SimWorld.kill`` at 60, must resume
    from 40 and end on the same numbers; the clean lattice's smallest Ritz
    value must lie within [-3 - 1e-5, -3 + 1e-3] and the disordered one's
-   within [-3.3 - 1e-5, -3]; checksum and snapshot launched.
+   within [-3.3 - 1e-5, -3]; checksum and snapshot launched, and the
+   fused Lanczos kernel launched once for every step begun.
 8. cluster — the same scenario on real worker processes
    (``apps.lanczos.cluster_lanczos`` over ``repro_torch.runtime.Cluster``),
    each rank a process with its own CUDA context on the card: (a) the
@@ -115,7 +120,8 @@ Phases, each printing one JSON line:
    once it passed 60.  Every member's alphas and betas must equal an
    uninterrupted one-process run's, the recovery must name the killed
    rank, no worker may outlive its Cluster, and the workers must have
-   launched checksum and snapshot (each reports its own counts).  Prints
+   launched checksum and snapshot and the fused Lanczos kernel once for
+   every step each began (each reports its own counts).  Prints
    per-rank iteration ms, Table 3's recovery phases, the replacement's
    spawn-to-hello seconds, Fig. 8's overheads, per-rank peak device bytes
    and the card's least free memory.
@@ -416,10 +422,56 @@ def phase_kernels(results: dict) -> dict:
     parity_kernels(cases, timing, rand_words)
     lm_kernels(cases, timing)
     train_kernels(cases, timing)
+    lanczos_kernel(cases, timing)
     dispatch = dispatch_cost()
     results["timing"] = timing
     return {"phase": "kernels", "cases": cases, "timing": timing,
             "dispatch_us": dispatch}
+
+
+def lanczos_kernel(cases: list, timing: dict) -> None:
+    """The fused Lanczos step (``kernels/lanczos``) at the lanczos phase's
+    lattice, on the second step of its problem: α, β and v_new against the
+    application's plain route on the same vectors within 1e-6; CUDA-event
+    ms of both; the bound is the least bytes of a step (v_cur, v_prev and
+    the on-site term read, v_new written) at the HBM rate, and ``bytes``
+    what the three passes move (8 vectors)."""
+    import torch
+
+    from repro_torch.apps import lanczos as L
+    from repro_torch.kernels.lanczos.kernel import lanczos_step_cuda
+
+    dev = torch.device("cuda")
+    cfg = L.GrapheneConfig(nx=LANCZOS_NX, ny=LANCZOS_NX,
+                           disorder=LANCZOS_DISORDER, seed=SEED)
+    eps = L.onsite(cfg, dev)
+    v_prev, _ = L._normalize(L.start_vector(cfg, dev))
+    _, beta, v_cur = L.plain_step(cfg, eps, torch.zeros_like(v_prev), v_prev,
+                                  0.0)
+    beta = float(beta)
+    plain = L.plain_step(cfg, eps, v_prev, v_cur, beta)
+    got = lanczos_step_cuda(cfg.t, eps, v_prev, v_cur, beta)
+    err = {"alpha": abs(float(got[0]) - float(plain[0])),
+           "beta": abs(float(got[1]) - float(plain[1])),
+           "v_new": float((got[2] - plain[2]).abs().max())}
+    require(max(err.values()) < 1e-6,
+            f"fused Lanczos step != plain route at {cfg.shape}: {err}")
+    del got, plain
+    cases.append({"case": f"lanczos_step-{LANCZOS_NX}x{LANCZOS_NX}",
+                  "max_abs_err": err})
+    least = 4 * 4 * cfg.n
+    t = {"ms": cuda_ms(lambda: lanczos_step_cuda(cfg.t, eps, v_prev, v_cur,
+                                                 beta)),
+         "plain_ms": cuda_ms(lambda: L.plain_step(cfg, eps, v_prev, v_cur,
+                                                  beta), 5, 1),
+         "least_bytes": least, "bytes": 8 * 4 * cfg.n,
+         "bound_ms": least / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "max_abs_err": max(err.values())}
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    t["GBps"] = t["bytes"] / (t["ms"] * 1e-3) / 1e9
+    timing["lanczos_step"] = t
+    del eps, v_prev, v_cur
+    torch.cuda.empty_cache()
 
 
 def dispatch_cost(calls: int = 200, rounds: int = 5) -> dict:
@@ -1289,6 +1341,7 @@ def _wrappers() -> dict:
     from repro_torch.kernels.checksum.kernel import checksum_rows
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_cuda
+    from repro_torch.kernels.lanczos.kernel import lanczos_step_cuda
     from repro_torch.kernels.rs_erasure.kernel import gf_matmul_cuda
     from repro_torch.kernels.snapshot.kernel import snapshot_chunks_cuda
     from repro_torch.kernels.ssm_scan.kernel import s6_scan_cuda, ssd_scan_cuda
@@ -1297,7 +1350,8 @@ def _wrappers() -> dict:
     return {"checksum": checksum_rows, "snapshot": snapshot_chunks_cuda,
             "xor_reduce": xor_reduce_cuda, "gf_matmul": gf_matmul_cuda,
             "flash_attention": flash_attention_cuda,
-            "ssd_scan": ssd_scan_cuda, "s6_scan": s6_scan_cuda}
+            "ssd_scan": ssd_scan_cuda, "s6_scan": s6_scan_cuda,
+            "lanczos_step": lanczos_step_cuda}
 
 
 def _counts():
@@ -2110,9 +2164,9 @@ def phase_lanczos(results: dict, scratch: Path) -> dict:
     free = L.run_lanczos(cfg, n_iter=LANCZOS_ITERS, device=dev)
     if dev.type == "cuda":
         # bit-exact resume, as the train child: deterministic algorithms.
-        # The Lanczos step is elementwise passes, rolls and full sums, no
-        # cuBLAS, so CUBLAS_WORKSPACE_CONFIG (read when cuBLAS starts,
-        # which an earlier phase did) is left to the later phases.
+        # The Lanczos step is the fused kernel (no atomics, no cuBLAS), so
+        # CUBLAS_WORKSPACE_CONFIG (read when cuBLAS starts, which an
+        # earlier phase did) is left to the later phases.
         torch.use_deterministic_algorithms(True)
     try:
         modes, launches_of = {}, {}
@@ -2245,6 +2299,14 @@ def phase_lanczos(results: dict, scratch: Path) -> dict:
             and launches_of["sync"]["snapshot"] > 0,
             f"lanczos phase launches {launches}, of the device snapshot "
             f"run {launches_of['sync']}")
+    # every step begun: the free run, the four modes, the crash and its
+    # rerun, the AFT zone's (a killed rank ends the step it began) and the
+    # clean lattice
+    steps = (6 * LANCZOS_ITERS + LANCZOS_FAIL_AT + LANCZOS_ITERS - last_cp
+             + sum(aft["hook_calls"].values()))
+    require(dev.type != "cuda" or launches["lanczos_step"] == steps,
+            f"lanczos phase: {launches['lanczos_step']} fused kernel "
+            f"launches for {steps} steps on the card")
     results["lanczos_launches"] = launches
     return {"phase": "lanczos", "n": cfg.n, "vector_bytes": vec_bytes,
             "iterations": LANCZOS_ITERS, "cp_freq": LANCZOS_CP_FREQ,
@@ -2335,6 +2397,12 @@ def _cluster_run(run, dev, scratch: Path) -> tuple:
         "replacement": bool(m["hydrated"]),
         "peak_device_bytes": m["peak_device_bytes"],
         "launches": m["launches"]} for m in members}
+    for m in members:
+        require(dev.type != "cuda"
+                or m["launches"]["lanczos_step"] == m["hook_calls"],
+                f"cluster {name} rank {m['rank']}: "
+                f"{m['launches']['lanczos_step']} fused kernel launches for "
+                f"{m['hook_calls']} steps")
     # Fig. 8's terms for the first survivor: its zone's seconds against 200
     # steps at its own pace; OH_rec the coordinator's recovery, OH_redo the
     # steps begun twice, the rest (version writes, the restore) OH_cp
@@ -2390,8 +2458,8 @@ def phase_cluster(results: dict, scratch: Path) -> dict:
     require(workers["checksum"] > 0 and workers["snapshot"] > 0,
             f"cluster phase: worker launches {dict(workers)}")
     parent = _counts()
-    # the kernels run in the workers; the parent's own runs checkpoint
-    # nothing and launch none of them
+    # the checkpoint kernels run in the workers; the parent's own runs
+    # checkpoint nothing (their Lanczos steps count in the parent)
     launches = {k: parent[k] + workers.get(k, 0) for k in parent}
     results["cluster_launches"] = launches
     return {"phase": "cluster", "runs": runs, "launches": launches,
@@ -3410,13 +3478,17 @@ KERNELS = [
     {"name": "s6_scan", "route": "cuda",
      "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
      "replaces": "src/repro/kernels/ssm_scan/kernel.py:133"},
+    {"name": "lanczos_step", "route": "cuda",
+     "source": "src/repro_torch/kernels/csrc/lanczos.cu",
+     "replaces": "none: the plain jnp step of src/repro/apps/lanczos.py"},
 ]
 # the path phase whose launches the table reports for each kernel
 PATH_OF = {"checksum": "launches", "snapshot": "launches",
            "xor_reduce": "redundancy_launches",
            "gf_matmul": "redundancy_launches",
            "flash_attention": "serve_launches",
-           "ssd_scan": "serve_launches", "s6_scan": "serve_launches"}
+           "ssd_scan": "serve_launches", "s6_scan": "serve_launches",
+           "lanczos_step": "lanczos_launches"}
 ALL_PHASES = ["build", "kernels", "main", "default", "control",
               "redundancy", "aft", "lanczos", "cluster", "mesh", "serve",
               "train"]

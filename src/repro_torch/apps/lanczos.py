@@ -11,9 +11,14 @@ out as an (nx, ny, 2) grid (2 = the A/B sublattices):
     (H ψ)_A(x, y) = t · [ψ_B(x, y) + ψ_B(x-1, y) + ψ_B(x, y-1)]
     (H ψ)_B(x, y) = t · [ψ_A(x, y) + ψ_A(x+1, y) + ψ_A(x, y+1)]
 
-(periodic boundaries via ``torch.roll``) + an optional on-site disorder
-term.  H is Hermitian, spectrum ⊂ [-3|t|-W, 3|t|+W].  The matvec and the
-dot products are plain PyTorch, as they are plain jnp in the reference.
+(periodic boundaries) + an optional on-site disorder term.  H is
+Hermitian, spectrum ⊂ [-3|t|-W, 3|t|+W].  :func:`lanczos_step` takes one
+of two routes, chosen by the vectors' device alone: on CUDA the
+hand-written kernel (``kernels/lanczos``: the stencil read in place, α and
+β summed in the same passes, three launches a step), which raises for
+vectors it does not take; on the CPU the plain PyTorch route,
+:func:`matvec` with ``torch.roll`` and an eager pass for each dot product
+and update, as plain jnp is in the reference.
 
 The problem is generated on the device: the on-site term and the start
 vector come from ``torch.Generator``s seeded with ``cfg.seed`` and
@@ -44,6 +49,8 @@ import torch
 
 from repro_torch.core import Box, Checkpoint, trace
 from repro_torch.core.elastic import hydrate_replacement
+from repro_torch.kernels.lanczos.kernel import lanczos_step_cuda
+from repro_torch.kernels.lanczos.ref import stencil
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,11 +91,7 @@ def start_vector(cfg: GrapheneConfig, device="cuda") -> torch.Tensor:
 def matvec(cfg: GrapheneConfig, eps: torch.Tensor,
            psi: torch.Tensor) -> torch.Tensor:
     """H @ psi for psi of shape (nx, ny, 2) — generated on the fly."""
-    a, b = psi[..., 0], psi[..., 1]
-    hb = cfg.t * (a + torch.roll(a, -1, 0) + torch.roll(a, -1, 1))
-    ha = cfg.t * (b + torch.roll(b, 1, 0) + torch.roll(b, 1, 1))
-    out = torch.stack([ha, hb], dim=-1)
-    return out + eps * psi
+    return stencil(cfg.t, eps, psi)
 
 
 def _normalize(v: torch.Tensor):
@@ -100,14 +103,30 @@ def lanczos_step(cfg: GrapheneConfig, eps: torch.Tensor,
                  v_prev: torch.Tensor, v_cur: torch.Tensor, beta: float):
     """One three-term step; returns (α, β_new, v_cur, v_new), α and β_new
     as 0-d tensors on the vectors' device.  ``beta`` is rounded to float32
-    first, as the reference passes ``jnp.float32(beta)``."""
+    first, as the reference passes ``jnp.float32(beta)``.  CUDA vectors go
+    to the kernel (``lanczos_step_cuda.launches`` counts its steps), CPU
+    vectors to :func:`plain_step`."""
     beta = float(np.float32(beta))
+    if v_cur.device.type == "cuda":
+        alpha, beta_new, v_new = lanczos_step_cuda(cfg.t, eps, v_prev, v_cur,
+                                                   beta)
+    else:
+        alpha, beta_new, v_new = plain_step(cfg, eps, v_prev, v_cur, beta)
+    return alpha, beta_new, v_cur, v_new
+
+
+def plain_step(cfg: GrapheneConfig, eps: torch.Tensor, v_prev: torch.Tensor,
+               v_cur: torch.Tensor, beta: float):
+    """The plain route of :func:`lanczos_step`: (α, β_new, v_new) by
+    :func:`matvec` and an eager pass for each product, sum and update, on
+    any device (the card's kernel is held to it); ``beta`` a float32
+    value."""
     w = matvec(cfg, eps, v_cur)
     alpha = torch.sum(w * v_cur)
     w = w - alpha * v_cur - beta * v_prev
     beta_new = torch.sqrt(torch.sum(w * w))
     v_new = w / torch.where(beta_new == 0, 1.0, beta_new)
-    return alpha, beta_new, v_cur, v_new
+    return alpha, beta_new, v_new
 
 
 @dataclasses.dataclass
@@ -426,7 +445,8 @@ def _cluster_member(comm, base: str, cfg: GrapheneConfig, n_iter: int,
     out["hook_calls"] = hook_calls
     out["started"] = started
     out["launches"] = {"checksum": checksum_rows.launches,
-                       "snapshot": snapshot_chunks_cuda.launches}
+                       "snapshot": snapshot_chunks_cuda.launches,
+                       "lanczos_step": lanczos_step_cuda.launches}
     out["peak_device_bytes"] = (torch.cuda.max_memory_allocated(dev)
                                 if dev.type == "cuda" else None)
     return out

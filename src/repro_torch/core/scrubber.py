@@ -49,6 +49,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import weakref
 from pathlib import Path
 from typing import List, Optional, Tuple
 
@@ -91,7 +92,10 @@ class Scrubber:
     """Per-checkpoint integrity scrubber over the live tier chain."""
 
     def __init__(self, checkpoint):
-        self.cp = checkpoint
+        # a proxy: the checkpoint owns its scrubber, and a strong reference
+        # back would keep a closed checkpoint, its items and their device
+        # tensors alive until the collector's next full pass
+        self.cp = weakref.proxy(checkpoint)
         self.env = checkpoint.env
         self._clock = checkpoint._clock
         self._queue: List[Tuple[str, int]] = []     # pending (slot, version)

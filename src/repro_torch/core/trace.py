@@ -364,10 +364,11 @@ def install(path: str) -> None:
     old.close()
 
 
-def install_memory(cap: int = 1 << 16) -> None:
+def install_memory(cap: int = 1 << 18) -> None:
     """Arm the memory recorder: the newest ``cap`` spans and events kept,
     written nowhere (:func:`kept` reads them, :func:`drain` hands them
-    back)."""
+    back).  A Lanczos iteration leaves three records, so the default holds
+    some 87,000 iterations: a 51 s window at 1,700 iterations a second."""
     global TRACER
     old, TRACER = TRACER, MemoryTracer(cap)
     old.close()

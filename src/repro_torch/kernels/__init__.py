@@ -8,9 +8,13 @@ serving paths.
 * ``flash_attention`` — blocked attention with an online softmax (prefill
   and decode);
 * ``ssm_scan`` — the mamba2 (``ssd_scan``) and mamba1 (``s6_scan``)
-  selective scans.
+  selective scans;
+* ``lanczos`` — one three-term Lanczos step on the graphene lattice (the
+  stencil matvec and its dot products, fused into three passes).
 
 Each subpackage has ``kernel.py`` (the CUDA wrapper, sources in ``csrc/``),
 ``ref.py`` (the plain PyTorch version) and ``ops.py`` (dispatch on the
-tensor's device: kernel on CUDA, plain version on the CPU).
+tensor's device: kernel on CUDA, plain version on the CPU); ``lanczos``
+has none, as ``apps/lanczos.lanczos_step`` dispatches its one caller, and
+its ``ref.py`` is the plain mirror of the kernel's passes.
 """

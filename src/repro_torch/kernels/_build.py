@@ -52,6 +52,8 @@ SIGNATURES = {
         "craft_s6_scan_chunked": [_VOIDP] * 10 + [_INT] * 5 + [_LL] * 8
         + [_INT, _VOIDP],
     },
+    "lanczos": {"craft_lanczos_step": [_VOIDP] * 5 + [_INT] * 3
+                + [_FLOAT, _FLOAT, _VOIDP]},
 }
 KERNELS = tuple(SIGNATURES)
 

@@ -343,8 +343,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     the multi-process runtime, the elastic helpers, the record → replay →
     tune tooling and the sharding layer (rules, constraints, meshes, the
     dry-run's specs and CLI, the roofline, the elastic-restore example)
-    among them (``tests/test_torch_examples.py`` runs each example and
-    checks the same of the run)."""
+    and the fused Lanczos step's kernel package among them
+    (``tests/test_torch_examples.py`` runs each example and checks the same
+    of the run)."""
     code = ("import importlib, pkgutil, sys, repro_torch; "
             "mods = [m.name for m in pkgutil.walk_packages("
             "repro_torch.__path__, 'repro_torch.')]; "
@@ -366,7 +367,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             "'repro_torch.sharding.activations', "
             "'repro_torch.launch.mesh', 'repro_torch.launch.specs', "
             "'repro_torch.launch.dryrun', 'repro_torch.analysis.roofline', "
-            "'repro_torch.examples.elastic_restore'}; "
+            "'repro_torch.examples.elastic_restore', "
+            "'repro_torch.kernels.lanczos.kernel', "
+            "'repro_torch.kernels.lanczos.ref'}; "
             "missing = sorted(need - set(mods)); "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "

@@ -776,6 +776,127 @@ def test_lanczos_crash_and_rerun_on_the_card_is_bit_exact(cuda, tmp_path):
     assert np.array_equal(res.betas, clean.betas)
 
 
+# -- the fused Lanczos step (kernels/lanczos) -------------------------------
+# 4, 6, 32, 64 and 48 x 24 as the CPU tests; (5, 8) odd rows; (8192, 64)
+# and (3000, 1030) blocks that walk several rows and strips
+FUSED_SHAPES = [(4, 4), (6, 6), (32, 32), (64, 64), (48, 24), (5, 8),
+                (8192, 64), (3000, 1030)]
+
+
+def _fused_inputs(shape, device):
+    g = torch.Generator().manual_seed(shape[0] * 10007 + shape[1])
+    eps = 0.3 * torch.rand(shape + (2,), generator=g)
+    v_prev, v_cur = (torch.randn(shape + (2,), generator=g)
+                     for _ in range(2))
+    return eps, v_prev / v_prev.norm(), v_cur / v_cur.norm()
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+def test_fused_lanczos_step_matches_plain(cuda, shape):
+    """The kernel's step on the card against the plain route's (on the
+    CPU): α, β and v_new within 1e-6; and against the plain mirror of its
+    passes (``kernels/lanczos/ref.py``), which groups the sums as it does,
+    bit for bit."""
+    from repro_torch.apps import lanczos as L
+    from repro_torch.kernels.lanczos.kernel import lanczos_step_cuda
+    from repro_torch.kernels.lanczos.ref import lanczos_step_ref
+
+    eps, v_prev, v_cur = _fused_inputs(shape, "cpu")
+    cfg = L.GrapheneConfig(nx=shape[0], ny=shape[1])
+    a, b, _, v_new = L.lanczos_step(cfg, eps, v_prev, v_cur, 0.8125)
+    ga, gb, g_new = lanczos_step_cuda(1.0, eps.to(cuda), v_prev.to(cuda),
+                                      v_cur.to(cuda), 0.8125)
+    torch.cuda.synchronize()
+    assert abs(float(ga) - float(a)) < 1e-6
+    assert abs(float(gb) - float(b)) < 1e-6
+    torch.testing.assert_close(g_new.cpu(), v_new, rtol=0, atol=1e-6)
+    ma, mb, m_new = lanczos_step_ref(1.0, eps, v_prev, v_cur, 0.8125)
+    assert float(ga) == float(ma) and float(gb) == float(mb)
+    assert torch.equal(g_new.cpu(), m_new)
+
+
+@pytest.mark.parametrize("deterministic", [False, True])
+def test_fused_lanczos_is_bit_identical_run_to_run(cuda, deterministic):
+    """Two solves through the fused route give the same bits, with torch's
+    deterministic flag off or on, and the same bits as each other."""
+    from repro_torch.apps import lanczos as L
+
+    cfg = L.GrapheneConfig(nx=256, ny=96, disorder=0.3)
+    was = torch.are_deterministic_algorithms_enabled()
+    try:
+        runs = []
+        for flag in (deterministic, deterministic, not deterministic):
+            torch.use_deterministic_algorithms(flag)
+            runs.append(L.run_lanczos(cfg, n_iter=60, device=cuda))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    for r in runs[1:]:
+        assert np.array_equal(r.alphas, runs[0].alphas)
+        assert np.array_equal(r.betas, runs[0].betas)
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (4300, 30)])
+def test_fused_lanczos_crash_at_40_and_rerun_is_bit_exact(cuda, tmp_path,
+                                                          shape):
+    """A checkpointed solve crashed at 40 and rerun resumes from the
+    version at 40 and ends on the uninterrupted solve's α and β, bit for
+    bit, every step on the fused route."""
+    from repro_torch.apps import lanczos as L
+
+    cfg = L.GrapheneConfig(nx=shape[0], ny=shape[1], disorder=0.3)
+    from repro_torch.kernels.lanczos.kernel import lanczos_step_cuda
+
+    launches = lanczos_step_cuda.launches
+    clean = L.run_lanczos(cfg, n_iter=80, device=cuda)
+    env = CraftEnv.capture({"CRAFT_CP_PATH": str(tmp_path),
+                            "CRAFT_USE_SCR": "0"})
+    with pytest.raises(RuntimeError, match="iteration 40"):
+        L.run_lanczos(cfg, n_iter=80, cp_freq=20, env=env, fail_at=40,
+                      device=cuda)
+    res = L.run_lanczos(cfg, n_iter=80, cp_freq=20, env=env, device=cuda)
+    assert res.restarted_at == 40
+    assert np.array_equal(res.alphas, clean.alphas)
+    assert np.array_equal(res.betas, clean.betas)
+    assert lanczos_step_cuda.launches == launches + 80 + 40 + 40
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_fused_route_counts_every_card_step(cuda, device):
+    """``lanczos_step_cuda.launches``: one for every step on CUDA vectors,
+    none for a step on CPU vectors."""
+    from repro_torch.apps import lanczos as L
+    from repro_torch.kernels.lanczos.kernel import lanczos_step_cuda
+
+    launches = lanczos_step_cuda.launches
+    L.run_lanczos(L.GrapheneConfig(nx=32, ny=32, disorder=0.3), n_iter=25,
+                  device=device)
+    assert lanczos_step_cuda.launches == launches + (
+        25 if device == "cuda" else 0)
+
+
+@pytest.mark.parametrize("case", ["odd_ny", "misaligned", "float64",
+                                  "strided"])
+def test_card_vectors_the_kernel_does_not_take_raise(cuda, case):
+    """A CUDA vector the kernel does not take raises in ``lanczos_step``
+    and launches nothing: no plain route on the card."""
+    from repro_torch.apps import lanczos as L
+    from repro_torch.kernels.lanczos.kernel import lanczos_step_cuda
+
+    shape = (8, 7, 2) if case == "odd_ny" else (8, 8, 2)
+    v = torch.rand(shape, device=cuda)
+    if case == "misaligned":
+        v = torch.rand(8 * 8 * 2 + 2, device=cuda)[2:].view(8, 8, 2)
+    elif case == "float64":
+        v = v.double()
+    elif case == "strided":
+        v = torch.rand(8, 8, 4, device=cuda)[..., :2]
+    cfg = L.GrapheneConfig(nx=8, ny=shape[1])
+    launches = lanczos_step_cuda.launches
+    with pytest.raises(ValueError, match="lanczos_step_cuda"):
+        L.lanczos_step(cfg, v, v, v, 0.5)
+    assert lanczos_step_cuda.launches == launches
+
+
 # -- the multi-process runtime on the card ---------------------------------
 def _card_roundtrip(comm, base, device):
     """A Cluster worker (module level: spawn pickles it by name): one

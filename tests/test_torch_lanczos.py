@@ -25,6 +25,8 @@ from repro_torch.apps import lanczos as L
 from repro_torch.convert import lanczos_init_from_numpy
 from repro_torch.core.env import CraftEnv
 from repro_torch.core.mem_level import MemFabric
+from repro_torch.kernels.lanczos import ref as fused_ref
+from repro_torch.kernels.lanczos.kernel import lanczos_step_cuda
 
 
 @pytest.fixture(autouse=True)
@@ -216,3 +218,85 @@ def test_aft_lanczos_equals_the_failure_free_run(tmp_path, kill, write_async):
     # each rank began steps 20..29 twice (before and after the failure)
     assert all(n >= 90 for n in out["hook_calls"].values())
     shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+# -- the fused step's plain mirror (kernels/lanczos/ref.py) ----------------
+@pytest.mark.parametrize("disorder", [0.0, 0.3])
+def test_fused_mirror_step_matches_reference(disorder):
+    """The kernel's three passes, as the plain mirror runs them, against
+    the reference's step at 32²: α, β and v_new within 1e-6."""
+    rcfg, _ = _cfgs(32, disorder)
+    eps, v0 = _ref_problem(rcfg)
+    rng = np.random.default_rng(11)
+    v_prev = rng.standard_normal((32, 32, 2)).astype(np.float32)
+    v_prev /= np.linalg.norm(v_prev)
+    v_cur = (v0 / np.linalg.norm(v0)).astype(np.float32)
+    beta = 0.8125
+    a, b, v_new = _ref_step(rcfg, jnp.asarray(eps), jnp.asarray(v_prev),
+                            jnp.asarray(v_cur), jnp.float32(beta))
+    ga, gb, gnew = fused_ref.lanczos_step_ref(
+        1.0, torch.from_numpy(eps), torch.from_numpy(v_prev),
+        torch.from_numpy(v_cur), beta)
+    assert abs(float(ga) - float(a)) < 1e-6
+    assert abs(float(gb) - float(b)) < 1e-6
+    np.testing.assert_allclose(gnew.numpy(), np.asarray(v_new), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("disorder", [0.0, 0.3])
+def test_fused_mirror_100_iterations_hold_the_reference(disorder):
+    """100 iterations of the mirror at 64² on the reference's problem:
+    alphas and betas within 1e-5 of ``repro.apps.lanczos.run_lanczos``."""
+    rcfg, _ = _cfgs(64, disorder)
+    ref = R.run_lanczos(rcfg, n_iter=100)
+    eps, v0 = (torch.from_numpy(x) for x in _ref_problem(rcfg))
+    v_cur = v0 / torch.sqrt(torch.sum(v0 * v0))
+    v_prev = torch.zeros_like(v_cur)
+    alphas, betas = np.zeros(100), np.zeros(101)
+    for it in range(100):
+        a, b, v_new = fused_ref.lanczos_step_ref(
+            1.0, eps, v_prev, v_cur, float(np.float32(betas[it])))
+        alphas[it], betas[it + 1] = float(a), float(b)
+        v_prev, v_cur = v_cur, v_new
+    np.testing.assert_allclose(alphas, ref.alphas, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(betas[:100], ref.betas, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(4, 4), (5, 8), (48, 24), (4300, 6),
+                                   (3, 1030)])
+def test_fused_mirror_groups_like_the_plain_step(shape):
+    """The mirror's grouping (a block walking several rows at (4300, 6),
+    several strips across a row at (3, 1030), odd nx at (5, 8)) against
+    the application's plain step: α, β and v_new within 1e-6, v_new's
+    elementwise arithmetic bit for bit where β_new agrees."""
+    nx, ny = shape
+    geo = fused_ref.geometry(nx, ny)
+    assert geo.groups * geo.rows >= nx > (geo.groups - 1) * geo.rows
+    assert geo.strips * fused_ref.STRIP >= ny
+    g = torch.Generator().manual_seed(nx * 1000 + ny)
+    eps = 0.3 * torch.rand(shape + (2,), generator=g)
+    v_prev, v_cur = (torch.randn(shape + (2,), generator=g)
+                     for _ in range(2))
+    v_prev, v_cur = v_prev / v_prev.norm(), v_cur / v_cur.norm()
+    cfg = L.GrapheneConfig(nx=nx, ny=ny)
+    a, b, _, v_new = L.lanczos_step(cfg, eps, v_prev, v_cur, 0.5)
+    ma, mb, m_new = fused_ref.lanczos_step_ref(1.0, eps, v_prev, v_cur, 0.5)
+    assert abs(float(ma) - float(a)) < 1e-6
+    assert abs(float(mb) - float(b)) < 1e-6
+    torch.testing.assert_close(m_new, v_new, rtol=0, atol=1e-6)
+    if float(ma) == float(a) and float(mb) == float(b):
+        assert torch.equal(m_new, v_new)
+
+
+def test_cpu_steps_take_the_plain_route():
+    """CPU vectors never reach the kernel, whose wrapper refuses them
+    before it builds anything: a CPU solve launches it not once."""
+    launches = lanczos_step_cuda.launches
+    res = L.run_lanczos(L.GrapheneConfig(nx=8, ny=8, disorder=0.3),
+                        n_iter=12, device="cpu")
+    assert res.iterations == 12
+    assert lanczos_step_cuda.launches == launches
+    v = torch.zeros(8, 8, 2)
+    with pytest.raises(ValueError, match="lanczos_step_cuda"):
+        lanczos_step_cuda(1.0, v, v, v, 0.0)
+    assert lanczos_step_cuda.launches == launches

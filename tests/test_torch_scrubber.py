@@ -4,7 +4,9 @@ quarantine — the reference's ``test_scrubber.py`` run against
 node / pfs) is detected and repaired without a restore ever observing bad
 bytes, plus bf16 files repaired under their own dtype.
 """
+import gc
 import shutil
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -429,3 +431,28 @@ class TestPortDtypes:
         assert st["corrupt_found"] == 1 and st["repaired"] == 1
         assert [f.read_bytes() for f in files] == good
         cp.close()
+
+
+class TestLifetime:
+    def test_a_closed_checkpoint_is_freed_without_the_collector(
+            self, tmp_path, data):
+        """The scrubber holds its checkpoint by a weak proxy, so dropping a
+        closed checkpoint frees it, its items and their tensors at once,
+        with no garbage collection; while the caller holds it, its scrubber
+        still scans."""
+        env = _env(tmp_path)
+        box = Box(torch.arange(4096, dtype=torch.float32))
+        gc.disable()
+        try:
+            cp = Checkpoint("life", FakeComm(0, 1), env=env)
+            cp.add("arr", data.copy())
+            cp.add("t", box)
+            cp.commit()
+            cp.update_and_write()
+            cp.close()
+            assert cp.scrubber.scan_once()["corrupt_found"] == 0
+            refs = [weakref.ref(cp), weakref.ref(box.value)]
+            del cp, box
+            assert [r() for r in refs] == [None, None]
+        finally:
+            gc.enable()
