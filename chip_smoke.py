@@ -28,7 +28,8 @@ Phases, each printing one JSON line:
    serving path's shapes (danube, zamba2 and deepseek-v3's MLA prefill at
    B 2, L 8192; musicgen's MHA 24 x 64 over its 64-frame prefix, L 8256,
    a ragged last tile; llava's GQA 56/8 x 128 over its 1152-patch prefix,
-   L 9344; one decode step over each full cache) in float32 and
+   L 9344; zamba2-7b's shared attention 32 x 224 at B 1, L 4096; one
+   decode step over each full cache) in float32 and
    bfloat16, timed in bfloat16 on its route and on the scalar route beside
    the plain version and scaled_dot_product_attention, with the
    HMMA/HGMMA count of the built library (cuobjdump -sass); ssd_scan and
@@ -838,7 +839,7 @@ def lm_kernels(cases: list, timing: dict) -> None:
                           "max_abs_err": {"flash_attention": err}})
 
     # ---- the serving path's attention shapes (bf16, B = 2, L = 8192)
-    L, B = 8192, 2
+    L = 8192
     shapes = {
         # danube prefill: GQA 32/8, window 4096
         "danube_prefill": (32, 8, L, L, True, 4096, 0, None),
@@ -857,13 +858,19 @@ def lm_kernels(cases: list, timing: dict) -> None:
         # 128-row tile is ragged) and llava-next-34b's GQA 56/8 x 128
         "musicgen_prefill": (24, 24, L + 64, L + 64, True, None, 0, None),
         "llava_prefill": (56, 8, L + 1152, L + 1152, True, None, 0, None),
+        # zamba2-7b's shared attention in a training step: 32 heads at 224
+        # over the benchmark's one sequence of 4096
+        "zamba2_7b_prefill": (32, 32, 4096, 4096, True, None, 0, None),
     }
     dims = {"mla_prefill": (MLA_DQK, MLA_DV), "mla_decode": (MLA_DQK, MLA_DV),
-            "musicgen_prefill": (64, 64), "llava_prefill": (128, 128)}
+            "musicgen_prefill": (64, 64), "llava_prefill": (128, 128),
+            "zamba2_7b_prefill": (224, 224)}
+    batches = {"zamba2_7b_prefill": 1}
     attn = {}
     for name, (hq, hkv, lq, lk, causal, window, q_offset, kv_len) in \
             shapes.items():
         dqk, dv = dims.get(name, (HEAD_DIM, HEAD_DIM))
+        B = batches.get(name, 2)
         kw = dict(causal=causal, window=window, q_offset=q_offset,
                   kv_len=kv_len)
         # float32 first, at the float32 tolerance: a wrong mask edge or
@@ -928,7 +935,7 @@ def lm_kernels(cases: list, timing: dict) -> None:
         # PyTorch's fused attention on the same inputs (timed only)
         if name.startswith("mla") or name in FRONTEND_PREFILLS:
             t.update(fused_library(q, k, v, lq, kv_len))
-        elif name == "zamba2_prefill":
+        elif name in ("zamba2_prefill", "zamba2_7b_prefill"):
             t["library"] = "F.scaled_dot_product_attention(is_causal=True)"
             t["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True))
@@ -958,7 +965,7 @@ def lm_kernels(cases: list, timing: dict) -> None:
     row.update({"max_abs_err": max(attn_err, max(
         a["max_abs_err"] for a in attn.values())), "shapes": attn,
         "sass": tensor_core_sass("flash_attention")})
-    for name in ("mla_prefill", *FRONTEND_PREFILLS):
+    for name in ("mla_prefill", *FRONTEND_PREFILLS, "zamba2_7b_prefill"):
         row[name] = {k: attn[name][k] for k in keep}
     require(row["sass"]["HMMA"] + row["sass"]["HGMMA"] > 0,
             f"no tensor-core instruction in flash_attention: {row['sass']}")

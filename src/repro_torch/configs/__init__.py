@@ -24,6 +24,7 @@ from repro_torch.configs import (
     phi4_mini_3p8b,
     yi_34b,
     zamba2_2p7b,
+    zamba2_7b,
 )
 from repro_torch.models.common import ModelConfig
 
@@ -41,6 +42,11 @@ _MODULES = {
 }
 
 ARCH_IDS = tuple(_MODULES)
+
+#: architectures of the port alone (the reference's registry has none of
+#: them): resolved by ``get_config``, outside the dry-run's cell matrix
+PORT_ONLY = ("zamba2-7b",)
+_MODULES["zamba2-7b"] = zamba2_7b
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,8 +82,8 @@ def get_config(arch_id: str, tiny: bool = False) -> ModelConfig:
     if arch_id in _EXTRA:
         return _EXTRA[arch_id][1 if tiny else 0]
     if arch_id not in _MODULES:
-        raise KeyError(
-            f"unknown arch {arch_id!r}; known: {', '.join(ARCH_IDS)}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: "
+                       f"{', '.join(ARCH_IDS + PORT_ONLY)}")
     mod = _MODULES[arch_id]
     return mod.TINY if tiny else mod.CONFIG
 

@@ -904,7 +904,8 @@ class Checkpoint:
         self.stats["restore_read_bytes"] = \
             (ctx.io_stats or {}).get("read_bytes", 0)
         if sp.armed:
-            sp.set(bytes=self.nbytes())
+            sp.set(bytes=self.nbytes(),
+                   leaves=(ctx.io_stats or {}).get("leaves", 0))
         seconds = sp.stop()
         metrics.inc("restores", slot=slot)
         metrics.observe("restore_seconds", seconds, slot=slot)

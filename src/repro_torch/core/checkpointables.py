@@ -209,6 +209,7 @@ def _restored_dtensor(ctx: IOContext, meta: dict, sources, live, where):
                               storage._dtype_from_name(meta["dtype"]),
                               sources, where, extent=ext)
     t = storage.as_tensor(block, meta["dtype"])
+    ctx.record_leaf()
     with trace.TRACER.span("craft::cp.h2d", bytes=block.nbytes):
         if local.dtype == t.dtype:
             with torch.no_grad():
@@ -232,6 +233,7 @@ def _restored_tensor(host: np.ndarray, dtype_name: str, live,
         raise CheckpointError(
             f"shape mismatch: stored {tuple(t.shape)} vs live "
             f"{tuple(live.shape)}")
+    ctx.record_leaf()
     with trace.TRACER.span("craft::cp.h2d", bytes=host.nbytes):
         if isinstance(live, torch.Tensor) and live.dtype == t.dtype:
             with torch.no_grad():

@@ -183,6 +183,13 @@ class IOContext:
             with self._lock:
                 self.io_stats["retries"] = self.io_stats.get("retries", 0) + 1
 
+    def record_leaf(self) -> None:
+        """Account one tensor moved onto its live place at restore (the
+        ``leaves`` field of the ``craft::cp.restore`` span)."""
+        if self.io_stats is not None:
+            with self._lock:
+                self.io_stats["leaves"] = self.io_stats.get("leaves", 0) + 1
+
     def record_read(self, nbytes: int) -> None:
         """Account payload bytes physically fetched at restore (range reads
         report only the chunks they touched — the elastic-restore savings

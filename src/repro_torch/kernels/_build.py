@@ -144,13 +144,17 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def count_launch(wrapper, route: Optional[str] = None) -> None:
+def count_launch(wrapper, route: Optional[str] = None,
+                 key=None) -> None:
     """Add one to ``wrapper.launches`` and, where the wrapper has routes, to
-    ``wrapper.routes[route]`` (rank threads launch concurrently)."""
+    ``wrapper.routes[route]``, and with ``key`` to ``wrapper.dims[key]``
+    (rank threads launch concurrently)."""
     with _count_lock:
         wrapper.launches += 1
         if route is not None:
             wrapper.routes[route] += 1
+        if key is not None:
+            wrapper.dims[key] = wrapper.dims.get(key, 0) + 1
 
 
 def check(rc: int, what: str) -> None:

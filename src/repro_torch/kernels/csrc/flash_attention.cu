@@ -22,8 +22,9 @@
 // from the dtype and shape, never on a failure.
 //
 // 1. tc_prefill (flash_tc): bf16, (DQK, DV) one of the instantiated pairs
-//    (template parameters: DQK == DV a multiple of 16 up to 128, and MLA's
-//    192 / 128), more than 64 rows of (query, group head).  One block of
+//    (template parameters: DQK == DV a multiple of 16 up to 128, MLA's
+//    192 / 128 and Zamba2-7B's shared attention at 224 / 224), more than
+//    64 rows of (query, group head).  One block of
 //    256 threads owns 128 q rows of one (batch, q head): two warpgroups of
 //    4 warps, 16 rows a warp.  The q tile and 64-key K/V tiles come into
 //    shared memory by 16-byte cp.async into a 2-stage ring, each stage's
@@ -34,7 +35,9 @@
 //    of bank conflicts without padding D itself.  At DQK 192 a warp holds
 //    Q's 12 k-steps of fragments (48 registers) beside its 16 x 128 fp32 O
 //    accumulator (64); ptxas reports the instance's registers and spills
-//    in the build log.  S = Q K^T and O += P V run on mma.sync.m16n8k16 (bf16 in,
+//    in the build log.  At 224 / 224 the shared memory is 178,304 bytes
+//    (the q tile and two stages of K and V, rows of 232) and a warp holds
+//    14 k-steps of Q (56 registers) beside a 16 x 224 O (112).  S = Q K^T and O += P V run on mma.sync.m16n8k16 (bf16 in,
 //    fp32 accumulators in registers); Q's fragments are loaded once, K's by
 //    ldmatrix, V's by ldmatrix.trans.  The online softmax stays in the
 //    accumulator registers (exp2f with scale * log2 e folded in; a row's
@@ -990,27 +993,34 @@ __global__ void __launch_bounds__(128) flash_combine(DecArgs a, int d,
   float m_max = -INFINITY;
   for (int s = 0; s < a.splits; ++s)
     m_max = fmaxf(m_max, a.pml[2 * (base + s * a.rows)]);
-  float l = 0.f, acc = 0.f;
-  const int dd = threadIdx.x;
+  // output dims threadIdx.x and threadIdx.x + 128 (DV up to 256)
+  float l = 0.f, acc[2] = {0.f, 0.f};
   if (m_max != -INFINITY) {
     for (int s = 0; s < a.splits; ++s) {
       const long long at = base + s * a.rows;
       const float w = exp2f(a.pml[2 * at] - m_max);   // 0 for an empty split
       l = fmaf(a.pml[2 * at + 1], w, l);
-      if (dd < d) acc = fmaf(a.po[at * d + dd], w, acc);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int dd = threadIdx.x + 128 * c;
+        if (dd < d) acc[c] = fmaf(a.po[at * d + dd], w, acc[c]);
+      }
     }
   }
-  if (dd >= d) return;
   const int i = r / a.group, j = r - i * a.group;
   T* op = static_cast<T*>(out) +
           ((static_cast<long long>(b) * a.hq + hk * a.group + j) * a.lq + i) *
               d;
-  op[dd] = from_f<T>(l > 0.f ? acc / l : 0.f);
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int dd = threadIdx.x + 128 * c;
+    if (dd < d) op[dd] = from_f<T>(l > 0.f ? acc[c] / l : 0.f);
+  }
 }
 
 template <typename T, int DQK, int DV = DQK>
 int launch(const DecArgs& a, int b, void* out, cudaStream_t s) {
-  static_assert(DV <= 128, "flash_combine has a thread per output dim");
+  static_assert(DV <= 256, "flash_combine: two output dims a thread");
   const size_t smem = smem_bytes(sizeof(T), DQK, DV, a.rows);
   cudaError_t err = cudaFuncSetAttribute(
       flash_decode<T, DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1059,7 +1069,8 @@ extern "C" int craft_flash_attention(
 }
 
 // tc_prefill route: bfloat16, dqk == dv a multiple of 16 up to 128, or
-// (dqk, dv) = (192, 128); q, k, v bases and strides 16-byte aligned
+// (dqk, dv) = (192, 128) or (224, 224); q, k, v bases and strides 16-byte
+// aligned
 extern "C" int craft_flash_prefill_tc(
     const void* q, const void* k, const void* v, void* out, void* lse,
     int b, int hq,
@@ -1077,6 +1088,7 @@ extern "C" int craft_flash_prefill_tc(
          q_offset, kv_len};
   auto s = static_cast<cudaStream_t>(stream);
   if (dqk == 192 && dv == 128) return tc::launch<192, 128>(a, b, s);
+  if (dqk == 224 && dv == 224) return tc::launch<224>(a, b, s);
   if (dqk != dv) return static_cast<int>(cudaErrorInvalidValue);
   switch (dqk) {
     case 16: return tc::launch<16>(a, b, s);
@@ -1095,6 +1107,7 @@ template <typename T>
 int decode_d(const dec::DecArgs& a, int b, int dqk, int dv, void* out,
              cudaStream_t s) {
   if (dqk == 192 && dv == 128) return dec::launch<T, 192, 128>(a, b, out, s);
+  if (dqk == 224 && dv == 224) return dec::launch<T, 224>(a, b, out, s);
   if (dqk != dv) return static_cast<int>(cudaErrorInvalidValue);
   switch (dqk) {
     case 16: return dec::launch<T, 16>(a, b, out, s);

@@ -30,7 +30,8 @@ backward.  ``tc_prefill`` and ``scalar`` write it; rows that would take
 
 ``flash_attention_cuda.launches`` counts the wrapper calls that launched
 (one per call, whatever the route), ``flash_attention_cuda.routes`` the
-calls of each route.
+calls of each route, and ``flash_attention_cuda.dims`` the calls of each
+``(dqk, route)``.
 """
 from __future__ import annotations
 
@@ -46,8 +47,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 D_MAX = 256              # dqk and dv, every route
 ROUTES = ("tc_prefill", "split_decode", "scalar")
 # (dqk, dv) pairs instantiated for tc_prefill and split_decode: the served
-# models' head dims (dqk == dv) and MLA's 128 + 64 / 128
-TC_DIMS = frozenset({(d, d) for d in range(16, 129, 16)} | {(192, 128)})
+# models' head dims (dqk == dv), MLA's 128 + 64 / 128 and Zamba2-7B's 224
+TC_DIMS = frozenset({(d, d) for d in range(16, 129, 16)}
+                    | {(192, 128), (224, 224)})
 DECODE_ROWS = 64         # rows (Lq * group) of one split_decode block
 DECODE_TILE = 64         # keys a split_decode block stages at a time
 BLOCKS_PER_SM = 2        # split_decode blocks the split count aims for
@@ -233,8 +235,9 @@ def _launch(route: str, q, k, v, out, *, causal: bool, window: int,
         else:
             raise ValueError(f"flash_attention_cuda: unknown route {route}")
     _build.check(rc, f"flash_attention_cuda ({route})")
-    _build.count_launch(flash_attention_cuda, route)
+    _build.count_launch(flash_attention_cuda, route, key=(dqk, route))
 
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.routes = dict.fromkeys(ROUTES, 0)
+flash_attention_cuda.dims = {}

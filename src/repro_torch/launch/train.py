@@ -51,6 +51,7 @@ import torch.utils._pytree as pytree
 from repro_torch.configs import get_config
 from repro_torch.core import Box, Checkpoint
 from repro_torch.core import metrics as craft_metrics
+from repro_torch.core import trace
 from repro_torch.core.aft import aft_zone
 from repro_torch.core.checkpointables import FuncCp, register_adapter
 from repro_torch.data.pipeline import DataCursor, SyntheticTokens
@@ -259,9 +260,15 @@ def run(tc: TrainConfig, comm=None, mesh=None,
         finally:
             cp.close()
 
+    def traced(comm_inner):
+        # span craft::train.run: the state built, the checkpoint opened
+        # and restored, the steps and the close
+        with trace.TRACER.span("craft::train.run"):
+            return body(comm_inner)
+
     if comm is None:
-        return body(None)
-    return aft_zone(comm, body)
+        return traced(None)
+    return aft_zone(comm, traced)
 
 
 def raise_fault(comm) -> None:

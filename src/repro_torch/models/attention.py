@@ -42,11 +42,14 @@ Cache = dict
 # GQA (llama-family; covers MHA when n_kv_heads == n_heads) + SWA option
 # =========================================================================
 def gqa_init(ini: Init, cfg):
+    """q, k and v read ``cfg.attn_in`` values (d_model, or 2 d_model in
+    the released Zamba2 layout); the output projection returns d_model."""
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    a = cfg.attn_in
     return {
-        "wq": dense_init(ini, (d, h, hd), d, cfg.dtype),
-        "wk": dense_init(ini, (d, hkv, hd), d, cfg.dtype),
-        "wv": dense_init(ini, (d, hkv, hd), d, cfg.dtype),
+        "wq": dense_init(ini, (a, h, hd), a, cfg.dtype),
+        "wk": dense_init(ini, (a, hkv, hd), a, cfg.dtype),
+        "wv": dense_init(ini, (a, hkv, hd), a, cfg.dtype),
         "wo": dense_init(ini, (h, hd, d), h * hd, cfg.dtype),
     }
 
@@ -91,15 +94,17 @@ def gqa_apply(
     cache: Optional[Cache] = None,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     b, l, _ = x.shape
-    q = apply_rope(_heads(x, params["wq"]), positions, cfg.rope_theta)
-    k = apply_rope(_heads(x, params["wk"]), positions, cfg.rope_theta)
+    half, scale = cfg.rope_half, cfg.sm_scale
+    q = apply_rope(_heads(x, params["wq"]), positions, cfg.rope_theta, half)
+    k = apply_rope(_heads(x, params["wk"]), positions, cfg.rope_theta, half)
     v = _heads(x, params["wv"])
     q = constrain(q, "batch", "heads", None, "head_dim")
     k = constrain(k, "batch", "kv_heads", None, "head_dim")
     v = constrain(v, "batch", "kv_heads", None, "head_dim")
 
     if cache is None:
-        y = attention(q, k, v, causal=True, window=cfg.window)
+        y = attention(q, k, v, causal=True, window=cfg.window,
+                      sm_scale=scale)
         new_cache = None
     else:
         m = cache["k"].shape[2]
@@ -115,10 +120,11 @@ def gqa_apply(
                 # decode: every valid slot is inside the newest query's
                 # window (the overwritten slot is exactly the one leaving it)
                 y = attention(q, cache["k"], cache["v"], causal=False,
-                              kv_len=min(pos + 1, m))
+                              kv_len=min(pos + 1, m), sm_scale=scale)
             else:
                 # single-shot prefill (pos == 0 assumed, as the reference)
-                y = attention(q, k, v, causal=True, window=cfg.window)
+                y = attention(q, k, v, causal=True, window=cfg.window,
+                              sm_scale=scale)
         else:
             if pos + l > m:
                 raise ValueError(f"KV cache full: {pos} + {l} positions "
@@ -127,10 +133,12 @@ def gqa_apply(
             _scatter_seq(cache["v"], v, pos)
             if l > 1:
                 # single-shot prefill (pos == 0): attention over the chunk
-                y = attention(q, k, v, causal=True, window=cfg.window)
+                y = attention(q, k, v, causal=True, window=cfg.window,
+                              sm_scale=scale)
             else:
                 y = attention(q, cache["k"], cache["v"], causal=True,
-                              q_offset=pos, kv_len=pos + l)
+                              q_offset=pos, kv_len=pos + l,
+                              sm_scale=scale)
         cache["pos"] += l
         new_cache = cache
     return _out_proj(y, params["wo"]), new_cache

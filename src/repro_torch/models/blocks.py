@@ -1,14 +1,17 @@
 """Decoder blocks assembled from the attention / ffn / ssm modules (the
-reference's ``repro/models/blocks.py``)."""
+reference's ``repro/models/blocks.py``), and one application of the
+released Zamba2 shared block (:func:`shared_apply`)."""
 from __future__ import annotations
 
 from typing import Optional
+
+import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
-    Init, mlp_apply, mlp_init, mlp_logical, rms_norm,
+    Init, dense_init, mlp_apply, mlp_init, mlp_logical, rms_norm,
 )
 
 
@@ -16,7 +19,7 @@ from repro_torch.models.layers import (
 def tblock_init(ini: Init, cfg, d_ff: Optional[int] = None,
                 use_moe: bool = False):
     mla = cfg.attn_type == "mla"
-    params = {"ln1": ini.full((cfg.d_model,), 1.0, cfg.dtype),
+    params = {"ln1": ini.full((cfg.attn_in,), 1.0, cfg.dtype),
               "attn": (attn.mla_init if mla else attn.gqa_init)(ini, cfg),
               "ln2": ini.full((cfg.d_model,), 1.0, cfg.dtype)}
     params["ffn"] = (moe_mod.moe_init(ini, cfg) if use_moe
@@ -43,8 +46,44 @@ def tblock_apply(params, x, cfg, positions, cache=None, use_moe: bool = False):
     if use_moe:
         f, aux = moe_mod.moe_apply(params["ffn"], h, cfg)
     else:
-        f, aux = mlp_apply(params["ffn"], h), 0.0
+        f, aux = mlp_apply(params["ffn"], h, cfg.ffn_act), 0.0
     return x + f, new_cache, aux
+
+
+# ------------------------------------------------- released Zamba2 hybrid
+def hybrid_init(ini: Init, cfg):
+    """One application's own weights: the linear its output goes through
+    and, with ``adapter_rank``, the LoRA pair on the MLP's gate/up."""
+    d, r, f = cfg.d_model, cfg.adapter_rank, cfg.d_ff
+    out = {"linear": dense_init(ini, (d, d), d, cfg.dtype)}
+    if r:
+        out["adapter_in"] = dense_init(ini, (d, r), d, cfg.dtype)
+        out["adapter_out"] = dense_init(ini, (r, 2 * f), r, cfg.dtype)
+    return out
+
+
+def hybrid_logical(cfg):
+    out = {"linear": ("embed", "embed")}
+    if cfg.adapter_rank:
+        out["adapter_in"] = ("embed", None)
+        out["adapter_out"] = (None, "mlp")
+    return out
+
+
+def shared_apply(params, app, x, emb, cfg, positions):
+    """One application of a shared block (its weights ``params``, the
+    application's own ``app``) to the residual stream ``x`` beside the
+    token embeddings ``emb``: RMSNorm of concat(x, emb), attention,
+    RMSNorm, the gated MLP with the application's adapter, then the
+    application's linear; no residual inside.  Returns (B, L, d_model),
+    which the caller adds to the next mamba layer's input."""
+    h = rms_norm(torch.cat([x, emb], dim=-1), params["ln1"], cfg.norm_eps)
+    a, _ = attn.gqa_apply(params["attn"], h, cfg, positions)
+    h = rms_norm(a, params["ln2"], cfg.norm_eps)
+    adapter = ((app["adapter_in"], app["adapter_out"])
+               if cfg.adapter_rank else None)
+    f = mlp_apply(params["ffn"], h, cfg.ffn_act, adapter)
+    return f @ app["linear"]
 
 
 # ---------------------------------------------------------------- ssm block
@@ -60,8 +99,10 @@ def sblock_logical(cfg):
     return {"ln": ("embed_act",), "ssm": m}
 
 
-def sblock_apply(params, x, cfg, cache=None):
-    h = rms_norm(x, params["ln"], cfg.norm_eps)
+def sblock_apply(params, x, cfg, cache=None, t=None):
+    """x + mamba(norm(x)), or with a shared block's output ``t``,
+    x + mamba(norm(x + t))."""
+    h = rms_norm(x if t is None else x + t, params["ln"], cfg.norm_eps)
     apply = (ssm_mod.mamba2_apply if cfg.ssm_type == "mamba2"
              else ssm_mod.mamba1_apply)
     y, new_cache = apply(params["ssm"], h, cfg, cache)

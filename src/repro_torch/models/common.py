@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,8 +26,11 @@ class ModelConfig:
     head_dim: int = 0               # 0 => d_model // n_heads
     window: Optional[int] = None    # sliding-window attention (SWA)
     rope_theta: float = 1e4
+    rope_half: bool = False         # rotate the halves of a head, not pairs
+    kv_channels: int = 0            # softmax scale kv_channels^-1/2; 0: hd
     # --- ffn ----------------------------------------------------------------
     d_ff: int = 0
+    ffn_act: str = "silu"           # silu | gelu (exact, erf)
     # --- MLA (deepseek-style multi-head latent attention) --------------------
     q_lora_rank: int = 0            # 0 => dense wq
     kv_lora_rank: int = 512
@@ -56,6 +59,15 @@ class ModelConfig:
     ssm_chunk: int = 256            # chunked selective-scan chunk length
     # --- hybrid (zamba2: shared attention block between mamba blocks) --------
     shared_attn_every: int = 0
+    # The released Zamba2 layout (empty: ``shared_attn_every``'s): before
+    # each mamba layer listed, application a of the shared blocks (block
+    # a % n_shared_blocks) reads concat(x, token embeddings), has no
+    # residual inside, and its output, through a linear of the
+    # application's own, is added to that layer's input; ``adapter_rank``
+    # > 0 gives each application a LoRA adapter on the MLP's gate/up.
+    hybrid_layer_ids: Tuple[int, ...] = ()
+    n_shared_blocks: int = 1
+    adapter_rank: int = 0
     # --- modality stub (audio / vlm backbones) --------------------------------
     frontend: Optional[str] = None  # audio | vision
     n_patches: int = 0              # vision tokens prepended (anyres stub)
@@ -73,6 +85,18 @@ class ModelConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // max(1, self.n_heads)
+
+    @property
+    def attn_in(self) -> int:
+        """The input width of a transformer block's norm and attention: 2
+        d_model in the released Zamba2 layout (x beside the token
+        embeddings), else d_model."""
+        return 2 * self.d_model if self.hybrid_layer_ids else self.d_model
+
+    @property
+    def sm_scale(self) -> Optional[float]:
+        """The softmax scale where it is not 1/sqrt(hd), else None."""
+        return self.kv_channels ** -0.5 if self.kv_channels else None
 
     @property
     def d_inner(self) -> int:
@@ -166,7 +190,18 @@ class ModelConfig:
             ssm = proj_in + self.ssm_conv * (di + 2 * g * st) + nh \
                 + di + di * d + nh            # A_log, D, dt_bias, norm
         total = n
-        if self.family == "hybrid":
+        if self.family == "hybrid" and self.hybrid_layer_ids:
+            # every leaf: each mamba layer with its conv bias and norm, each
+            # shared block, each application's adapter and linear
+            a, hd, f, r = self.attn_in, self.hd, self.d_ff, self.adapter_rank
+            conv_dim = self.d_inner + 2 * self.ssm_groups * self.ssm_state
+            shared = a + a * self.n_heads * hd \
+                + 2 * a * self.n_kv_heads * hd + self.n_heads * hd * d \
+                + d + 3 * d * f
+            total += self.n_layers * (ssm + conv_dim + self.ssm_heads + d)
+            total += self.n_shared_blocks * shared
+            total += len(self.hybrid_layer_ids) * (r * (d + 2 * f) + d * d)
+        elif self.family == "hybrid":
             # shared attention+ffn block counted once (weights are shared)
             n_shared_applications = (
                 self.n_layers // self.shared_attn_every

@@ -1,4 +1,4 @@
-"""Shared layer primitives: RMSNorm, RoPE, SwiGLU MLP, embedding.
+"""Shared layer primitives: RMSNorm, RoPE, gated MLP, embedding.
 
 The reference's ``repro/models/layers.py`` on tensors.  Random weights come
 from an explicit ``torch.Generator`` through :class:`Init`; they do not
@@ -113,14 +113,21 @@ def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """Rotary embedding.  x: (..., L, D even); positions: (L,) or (B, L)."""
+               theta: float, half: bool = False) -> torch.Tensor:
+    """Rotary embedding.  x: (..., L, D even); positions: (L,) or (B, L).
+    Frequency i turns the pair (2i, 2i + 1), or with ``half`` the pair
+    (i, i + D/2) (the released checkpoints' ``rotate_half``)."""
     d = x.shape[-1]
     inv = rope_freqs(d, theta, x.device)                     # (D/2,)
     ang = positions.to(torch.float32)[..., None] * inv       # (..., L, D/2)
     while ang.dim() < x.dim():
         ang = ang[None]
     cos, sin = torch.cos(ang), torch.sin(ang)
+    if half:
+        xf1, xf2 = x[..., :d // 2].float(), x[..., d // 2:].float()
+        out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
+                        dim=-1)
+        return out.to(x.dtype)
     xf1, xf2 = x[..., 0::2].float(), x[..., 1::2].float()
     out = torch.stack([xf1 * cos - xf2 * sin, xf1 * sin + xf2 * cos], dim=-1)
     return out.reshape(x.shape).to(x.dtype)
@@ -148,7 +155,7 @@ def unembed_apply(params, x: torch.Tensor, fp32: bool = True) -> torch.Tensor:
     return logits.float() if fp32 else logits
 
 
-# ---------------------------------------------------------------- SwiGLU MLP
+# ---------------------------------------------------------------- gated MLP
 def mlp_init(ini: Init, cfg, d_ff: Optional[int] = None):
     d, f = cfg.d_model, d_ff or cfg.d_ff
     return {
@@ -166,8 +173,20 @@ def mlp_logical(cfg):
     }
 
 
-def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
+_ACTS = {"silu": F.silu, "gelu": F.gelu}      # gelu: the exact (erf) form
+
+
+def mlp_apply(params, x: torch.Tensor, act: str = "silu",
+              adapter=None) -> torch.Tensor:
+    """act(x W_gate) * (x W_up), then W_down.  ``adapter``: a LoRA pair
+    (A (D, r), B (r, 2 F)) whose x A B adds to gate (its first F columns)
+    and up (the rest)."""
     g = x @ params["w_gate"]
     u = x @ params["w_up"]
-    h = F.silu(g.float()).to(x.dtype) * u
+    if adapter is not None:
+        delta = (x @ adapter[0]) @ adapter[1]
+        f = g.shape[-1]
+        g = g + delta[..., :f]
+        u = u + delta[..., f:]
+    h = _ACTS[act](g.float()).to(x.dtype) * u
     return h @ params["w_down"]

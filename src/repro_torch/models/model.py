@@ -11,7 +11,15 @@ Families of the port
     (``cfg.mtp``: :func:`mtp_hidden`, used by the training loss),
   * ssm    — mamba1/mamba2 blocks (attention-free),
   * hybrid — zamba2: groups of ``shared_attn_every`` mamba2 blocks with ONE
-    weight-shared transformer block applied between groups.
+    weight-shared transformer block applied between groups; or, with
+    ``cfg.hybrid_layer_ids``, the released Zamba2 layout: before each
+    listed mamba layer one application of ``n_shared_blocks`` shared
+    blocks taken in turn (``blocks.shared_apply``, under the trace span
+    ``craft::shared_block``), its output added to that layer's input.
+    Parameters ``shared_blocks`` (stacked on the blocks) and ``hybrid``
+    (each application's linear and adapter, stacked on the applications)
+    take the place of ``shared_block``; no cache is built for this layout
+    (decode is not ported for it).
 
 Parameters keep the reference's tree and layer-stacked layout: ``blocks``
 (and the moe family's ``dense_blocks``) leaves are ``(n_layers, ...)``;
@@ -44,6 +52,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.utils._pytree as pytree
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks as blk
@@ -111,7 +120,13 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
     else:
         params["blocks"] = stack_init(
             lambda i: blk.sblock_init(i, cfg), ini, cfg.n_layers)
-        if cfg.family == "hybrid":
+        if cfg.family == "hybrid" and cfg.hybrid_layer_ids:
+            params["shared_blocks"] = stack_init(
+                lambda i: blk.tblock_init(i, cfg), ini, cfg.n_shared_blocks)
+            params["hybrid"] = stack_init(
+                lambda i: blk.hybrid_init(i, cfg), ini,
+                len(cfg.hybrid_layer_ids))
+        elif cfg.family == "hybrid":
             params["shared_block"] = blk.tblock_init(ini, cfg)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(
@@ -140,7 +155,12 @@ def param_logical(cfg: ModelConfig):
         out["blocks"] = _prepend("layers", blk.sblock_logical(cfg))
     elif cfg.family == "hybrid":
         out["blocks"] = _prepend("layers", blk.sblock_logical(cfg))
-        out["shared_block"] = blk.tblock_logical(cfg)
+        if cfg.hybrid_layer_ids:
+            out["shared_blocks"] = _prepend("layers",
+                                            blk.tblock_logical(cfg))
+            out["hybrid"] = _prepend("layers", blk.hybrid_logical(cfg))
+        else:
+            out["shared_block"] = blk.tblock_logical(cfg)
     if not cfg.tie_embeddings:
         out["lm_head"] = ("embed", "vocab")
     if cfg.mtp:
@@ -164,9 +184,17 @@ def _stack_cache(proto, n: int, device):
         proto)
 
 
+def _no_cache(cfg: ModelConfig) -> None:
+    if cfg.hybrid_layer_ids:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: decode through a cache is not ported for the "
+            "released Zamba2 layout (hybrid_layer_ids)")
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda"):
     _served(cfg)
+    _no_cache(cfg)
     dtype = dtype or cfg.dtype
     if cfg.family in DENSE_FAMILIES:
         proto = blk.tblock_cache_init(cfg, batch, max_len, dtype, "meta")
@@ -191,6 +219,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
 
 def cache_logical(cfg: ModelConfig):
     """The caches' logical dims, the reference's tree."""
+    _no_cache(cfg)
     if cfg.family in DENSE_FAMILIES or cfg.family == "moe":
         proto = _prepend("layers", blk.tblock_cache_logical(cfg))
         out = {"layers": proto}
@@ -280,7 +309,11 @@ def forward_hidden(
     def moe_apply(p, h, c):
         return blk.tblock_apply(p, h, cfg, positions, c, use_moe=True)
 
-    if cfg.family == "hybrid":
+    if cfg.family == "hybrid" and cfg.hybrid_layer_ids:
+        if cache is not None:
+            _no_cache(cfg)
+        x, aux = _released_hybrid_forward(params, x, cfg, positions)
+    elif cfg.family == "hybrid":
         x, aux = _hybrid_forward(params, x, cfg, positions, cache)
     elif cfg.family == "moe":
         aux = 0.0
@@ -312,6 +345,42 @@ def forward(
     x, new_cache, aux = forward_hidden(
         params, cfg, tokens=tokens, embeds=embeds, cache=cache, pos0=pos0)
     return unembed(params, cfg, x), new_cache, aux
+
+
+def _released_hybrid_forward(params, x, cfg, positions):
+    """The released Zamba2 layout (``cfg.hybrid_layer_ids``): the mamba
+    layers in order, and before each listed one application of the
+    shared blocks in turn, whose output enters that layer as
+    x + mamba(norm(x + t)).  Every application reads the token
+    embeddings ``x`` enters with.  Under remat the shared application and
+    the mamba layer are each one checkpointed unit.  Returns (x, aux)."""
+    emb = x
+    ids = {layer: a for a, layer in enumerate(cfg.hybrid_layer_ids)}
+    record = cfg.remat and torch.is_grad_enabled()
+
+    def shared_fn(p, app, h, e):
+        return blk.shared_apply(p, app, h, e, cfg, positions)
+
+    def s_fn(p, h, t):
+        return blk.sblock_apply(p, h, cfg, None, t)[0]
+
+    def run(fn, *args):
+        return (checkpoint(fn, *args, use_reentrant=False) if record
+                else fn(*args))
+
+    blocks = _layers(params["blocks"], cfg.n_layers)
+    shared = _layers(params["shared_blocks"], cfg.n_shared_blocks)
+    apps = _layers(params["hybrid"], len(cfg.hybrid_layer_ids))
+    for i in range(cfg.n_layers):
+        t = None
+        if i in ids:
+            a = ids[i]
+            with record_function("craft::shared_block"):
+                t = run(shared_fn, shared[a % cfg.n_shared_blocks], apps[a],
+                        x, emb)
+        x = run(s_fn, blocks[i], x, t)
+        x = constrain(x, "batch", "seq", "embed_act")
+    return x, 0.0
 
 
 def _hybrid_forward(params, x, cfg, positions, cache):

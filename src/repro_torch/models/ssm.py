@@ -152,6 +152,16 @@ def mamba1_apply(
 # =========================================================================
 # Mamba2 (SSD): scalar decay per head, grouped B/C
 # =========================================================================
+def gated_norm(y, z, w, groups: int, eps: float) -> torch.Tensor:
+    """Mamba2's gated RMSNorm, float32: norm(y * silu(z)) over each B/C
+    group's d_inner / groups values (Mamba2's RMSNormGated), times w."""
+    b, l, di = y.shape
+    gated = (y * F.silu(z.float())).reshape(b, l, groups, di // groups)
+    var = gated.square().mean(dim=-1, keepdim=True)
+    return (gated * torch.rsqrt(var + eps)).reshape(b, l, di) \
+        * w.float()[None, None]
+
+
 def mamba2_init(ini: Init, cfg):
     d, di, st = cfg.d_model, cfg.d_inner, cfg.ssm_state
     nh, g, kc = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_conv
@@ -236,11 +246,7 @@ def mamba2_apply(
                                chunk=cfg.ssm_chunk)
     y = y + params["D"][None, None, :, None] * xs
     y = y.reshape(b, l, di)
-    # gated RMSNorm (mamba2): norm(y * silu(z))
-    gated = y * F.silu(z.float())
-    var = gated.square().mean(dim=-1, keepdim=True)
-    y = gated * torch.rsqrt(var + cfg.norm_eps) \
-        * params["norm_w"].float()[None, None]
+    y = gated_norm(y, z, params["norm_w"], g, cfg.norm_eps)
     out = y.to(cfg.dtype) @ params["out_proj"]
     new_cache = None
     if cache is not None:

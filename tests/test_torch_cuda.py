@@ -199,6 +199,16 @@ FLASH_CASES = [
     (2, 56, 8, 1, 9376, 128, True, None, 9375, 9376, "split_decode"),
     (1, 16, 2, 1, 8257, 64, True, None, 8256, 8257, "split_decode"),
     (2, 64, 8, 1, 8224, 128, True, None, 8223, 8224, "split_decode"),
+    # zamba2-7b's shared attention at 224 (route "decode": split_decode in
+    # bfloat16; float32's two stages of 224-wide K and V do not fit a
+    # block's shared memory, so scalar): a ragged prefill with an offset,
+    # a windowed one, its 32 heads at group 1, and decode rows of 1 and 64
+    (2, 4, 4, 333, 517, 224, True, None, 184, None, "prefill"),
+    (1, 4, 2, 257, 400, 224, True, 100, 143, None, "prefill"),
+    (1, 32, 32, 1024 + 211, 1024 + 211, 224, True, None, 0, None,
+     "prefill"),
+    (1, 32, 32, 1, 4096, 224, True, None, 4095, 4096, "decode"),
+    (1, 4, 4, 16, 600, 224, True, None, 584, None, "decode"),
 ]
 
 
@@ -208,6 +218,8 @@ def test_flash_attention_matches_plain(cuda, case, dtype):
     b, hq, hkv, lq, lk, d, causal, window, q_offset, kv_len, route = case
     if route == "prefill":
         route = "tc_prefill" if dtype == torch.bfloat16 else "scalar"
+    elif route == "decode":
+        route = "split_decode" if dtype == torch.bfloat16 else "scalar"
     g = torch.Generator(device=cuda).manual_seed(lq * 7 + lk)
     q = torch.randn((b, lq, hq, d), generator=g, device=cuda,
                     dtype=dtype).transpose(1, 2)          # strided q
@@ -216,11 +228,13 @@ def test_flash_attention_matches_plain(cuda, case, dtype):
     kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
     launches = flash_attention_cuda.launches
     routes = dict(flash_attention_cuda.routes)
+    dims = flash_attention_cuda.dims.get((d, route), 0)
     out = flash_attention_cuda(q, k, v, **kw)
     torch.cuda.synchronize()
     assert flash_attention_cuda.launches == launches + 1
     assert {r: n - routes[r] for r, n in flash_attention_cuda.routes.items()
             } == {r: int(r == route) for r in routes}
+    assert flash_attention_cuda.dims[(d, route)] == dims + 1
     ref = attention_ref(q, k, v, **kw)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)

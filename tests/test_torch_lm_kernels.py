@@ -258,6 +258,11 @@ def test_choose_route(dtype, lq, group, d, route):
     (torch.bfloat16, 8192, 1, 128, 192, "scalar"),       # no instance
     (torch.bfloat16, 8192, 1, 24, 16, "scalar"),         # TINY deepseek
     (torch.bfloat16, 8192, 1, 256, 256, "scalar"),
+    (torch.bfloat16, 4096, 1, 224, 224, "tc_prefill"),   # zamba2-7b train
+    (torch.bfloat16, 1, 1, 224, 224, "split_decode"),
+    (torch.bfloat16, 64, 1, 224, 224, "split_decode"),   # 64 rows fit
+    (torch.float32, 1, 1, 224, 224, "scalar"),           # float32 does not
+    (torch.float32, 4096, 1, 224, 224, "scalar"),
 ])
 def test_choose_route_two_head_dims(dtype, lq, group, dqk, dv, route):
     """(dqk, dv) pairs without a tensor-core instance, and float32 decode

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from repro_torch.analysis import roofline as R
-from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+from repro_torch.configs import ARCH_IDS, PORT_ONLY, SHAPES, get_config
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.kernels.ssm_scan import ops as scan_ops
 
@@ -262,19 +262,52 @@ def test_fake_tensors_pass_through_the_kernels():
 
 
 # ------------------------------------------------------------- MODEL_FLOPS
+#: parameters of the port-only archs, counted by hand from their widths:
+#: zamba2-7b's 81 mamba layers (78,437,456 each: in_proj 3584 x 14704,
+#: conv 4 x 7424 with its bias, 3 x 112 head scalars, the gated norm's
+#: 7168, out_proj 7168 x 3584, the layer norm), 2 shared blocks
+#: (333,982,208 each: norm 7168, q/k/v 7168 x 7168, o 7168 x 3584, norm
+#: 3584, gate/up/down 3 x 3584 x 14336), 13 applications (adapter 3584 x
+#: 128 + 128 x 28672, linear 3584 x 3584), the tied embedding 32000 x 3584
+#: and the final norm
+PORT_ONLY_PARAMS = {
+    "zamba2-7b": 81 * 78_437_456 + 2 * 333_982_208
+    + 13 * (4_128_768 + 12_845_056) + 114_688_000 + 3584,
+}
+
+
 @pytest.mark.parametrize("shape", list(SHAPES))
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", ARCH_IDS + PORT_ONLY)
 def test_model_flops_equal_reference(arch, shape):
+    """The reference registry's archs against the reference's counts; each
+    port-only arch against its hand count (6 N D train, 2 N D forward)."""
+    s = SHAPES[shape]
+    if arch in PORT_ONLY:
+        n = PORT_ONLY_PARAMS[arch]
+        tokens = s.global_batch * (1 if s.kind == "decode" else s.seq_len)
+        for n_chips in (1, 256, 512):
+            got = R.model_flops(get_config(arch), s.seq_len, s.global_batch,
+                                s.kind, n_chips)
+            per = 6.0 if s.kind == "train" else 2.0
+            assert got == per * n * tokens / n_chips
+        return
     from repro.analysis import roofline as RR
     from repro.configs import get_config as ref_config
 
-    s = SHAPES[shape]
     for n_chips in (1, 256, 512):
         got = R.model_flops(get_config(arch), s.seq_len, s.global_batch,
                             s.kind, n_chips)
         want = RR.model_flops(ref_config(arch), s.seq_len, s.global_batch,
                               s.kind, n_chips)
         assert got == want
+
+
+def test_port_only_archs_are_not_in_the_reference_registry():
+    from repro.configs import ARCH_IDS as REF_IDS
+
+    assert set(ARCH_IDS) == set(REF_IDS)
+    assert not set(PORT_ONLY) & set(REF_IDS)
+    assert set(PORT_ONLY) == set(PORT_ONLY_PARAMS)
 
 
 def test_report_terms_use_the_h100():

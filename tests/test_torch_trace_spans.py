@@ -222,6 +222,7 @@ def test_a_restore_through_the_memory_tier_records_its_spans(tmp_path):
     (restore,) = [s for s in spans if s.name == "craft::cp.restore"]
     assert restart.fields == {"cp": "aftlan", "restored": True}
     assert restore.fields["version"] == 1 and restore.fields["slot"] == "mem"
+    assert restore.fields["leaves"] == len(h2d)
     steps = [s for s in spans if s.name == "craft::lanczos.step"]
     assert len(steps) == 1 and len(out["iter_s"]) == 1
     assert out["iter_s"][0] == pytest.approx(
@@ -237,6 +238,34 @@ def test_a_restore_through_the_memory_tier_records_its_spans(tmp_path):
         "craft::cp.d2h", "craft::cp.restart", "craft::cp.restore",
         "craft::cp.h2d", "craft::lanczos.iterate", "craft::lanczos.step",
         "craft::lanczos.read", "craft::cp.fence"}
+
+
+def test_a_training_restore_records_its_spans_under_the_run(tmp_path):
+    """``launch.train.run`` holds its checkpoint's adds (with their copies
+    to the host) and its restart in one ``craft::train.run`` span."""
+    from repro_torch.launch.train import TrainConfig, run
+
+    env = _restore_env(tmp_path)
+    tc = TrainConfig(arch="zamba2-7b", tiny=True, steps=3, global_batch=1,
+                     seq_len=16, cp_freq=2, device="cpu", seed=3)
+    run(tc, env=env)
+    trace.install_memory()
+    out = run(tc, env=env)
+    spans = _spans(trace.drain()[0])
+    trace.uninstall()
+    assert out["start_step"] == 2
+    by_id = {s.id: s for s in spans}
+    (root,) = [s for s in spans if s.name == "craft::train.run"]
+    assert root.parent is None
+    (restart,) = [s for s in spans if s.name == "craft::cp.restart"]
+    assert restart.parent == root.id and restart.fields["restored"]
+    adds = [s for s in spans if s.name == "craft::cp.add"]
+    assert sorted(s.fields["key"] for s in adds) == ["cursor", "state",
+                                                     "step"]
+    assert {by_id[s.parent].name for s in adds} == {"craft::train.run"}
+    d2h = [s for s in spans if s.name == "craft::cp.d2h"]
+    assert d2h and {tuple(_chain(s, by_id)) for s in d2h} == {
+        ("craft::cp.d2h", "craft::cp.add", "craft::train.run")}
 
 
 def test_the_restore_span_is_the_restore_seconds_clock(tmp_path):
