@@ -210,7 +210,9 @@ def _restored_dtensor(ctx: IOContext, meta: dict, sources, live, where):
                               sources, where, extent=ext)
     t = storage.as_tensor(block, meta["dtype"])
     ctx.record_leaf()
-    with trace.TRACER.span("craft::cp.h2d", bytes=block.nbytes):
+    with trace.TRACER.span("craft::cp.h2d", bytes=block.nbytes) as sp:
+        if sp.armed:
+            sp.set(pinned=int(t.is_pinned()))
         if local.dtype == t.dtype:
             with torch.no_grad():
                 local.copy_(t)
@@ -226,7 +228,8 @@ def _restored_tensor(host: np.ndarray, dtype_name: str, live,
     shape and dtype match, else a new tensor on the live tensor's device
     (``ctx.device`` when there is no live tensor).  A read-only host array
     (the memory tier's resident copy) is never aliased by the result.
-    Span ``craft::cp.h2d``: the copy."""
+    Span ``craft::cp.h2d``: the copy; ``pinned`` 1 when it reads
+    page-locked memory (a card's memory tier), so runs as a direct DMA."""
     t = storage.as_tensor(host, dtype_name)
     if isinstance(live, torch.Tensor) \
             and tuple(live.shape) != tuple(t.shape):
@@ -234,7 +237,9 @@ def _restored_tensor(host: np.ndarray, dtype_name: str, live,
             f"shape mismatch: stored {tuple(t.shape)} vs live "
             f"{tuple(live.shape)}")
     ctx.record_leaf()
-    with trace.TRACER.span("craft::cp.h2d", bytes=host.nbytes):
+    with trace.TRACER.span("craft::cp.h2d", bytes=host.nbytes) as sp:
+        if sp.armed:
+            sp.set(pinned=int(t.is_pinned()))
         if isinstance(live, torch.Tensor) and live.dtype == t.dtype:
             with torch.no_grad():
                 live.copy_(t)

@@ -34,7 +34,12 @@ per rank the fabric degrades to a process-local cache: a killed process
 loses its slots exactly as a real host loses its RAM, and restore falls back
 to the node/PFS tiers.  RAM shards stay host numpy arrays; bfloat16/fp8
 arrays are kept as their same-width unsigned views beside their on-disk
-dtype names (``IOContext.array_dtypes``).
+dtype names (``IOContext.array_dtypes``).  For a store on a card each
+resident array is page-locked in place (``cudaHostRegister`` of its own
+memory, no copy), so a restore's copy onto the card runs as a direct DMA
+instead of through CUDA's pageable staging buffer; the lock is released
+with the memory, once the entry and every view of it are gone.  A CPU
+store keeps plain pageable arrays.
 
 Fail-stop modelling: ``SimWorld.kill`` fires fault-domain hooks (see
 :meth:`repro_torch.core.comm.FTComm.fault_domain`); the fabric drops the dead
@@ -54,10 +59,12 @@ import os
 import shutil
 import tempfile
 import threading
+import weakref
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core import metrics, storage, tiers, trace
 from repro_torch.core.cpbase import CheckpointError, IOContext
@@ -121,14 +128,87 @@ def default_scratch_root() -> Path:
     return parent / f"{_SCRATCH_PREFIX}{os.getpid()}"
 
 
+# -- page-locked payloads ----------------------------------------------------
+# id() of each array whose memory is registered.  An RLock: a release runs
+# wherever the owner's last reference drops, which may be inside a
+# registration on the same thread.
+_pin_lock = threading.RLock()
+_pinned: set = set()
+_pinned_bytes = 0
+
+
+def _page_lockable(device: str) -> bool:
+    """Are a store's resident payloads page-locked?  Only where a card's
+    DMA reads them: a CUDA store with a card present."""
+    return torch.device(device).type == "cuda" and torch.cuda.is_available()
+
+
+def _host_register(ptr: int, nbytes: int) -> bool:
+    """Page-lock ``[ptr, ptr + nbytes)`` for the card (in place)."""
+    err = torch.cuda.cudart().cudaHostRegister(ptr, nbytes, 0)
+    if int(getattr(err, "value", err)) == 0:
+        return True
+    # the runtime keeps a failed call's error for the thread's next kernel
+    # launch check, which would raise it against an unrelated kernel: a
+    # one-element launch consumes it here
+    try:
+        torch.zeros(1, device="cuda")
+    except RuntimeError:
+        pass
+    return False
+
+
+def _host_unregister(ptr: int) -> None:
+    torch.cuda.cudart().cudaHostUnregister(ptr)
+
+
+def _page_lock(array: np.ndarray) -> bool:
+    """Page-lock the memory under ``array`` in place, once per owner, and
+    release it when the owner is freed (before numpy frees the memory).
+    The owner is the array at the root of the views: numpy points every
+    view at it, so it lives exactly as long as some view of the memory
+    does.  Returns whether it is locked; a refusal leaves it pageable and
+    is counted in ``mem_pin_failures``."""
+    global _pinned_bytes
+    root = array
+    while isinstance(root.base, np.ndarray):
+        root = root.base
+    nbytes = int(root.nbytes)
+    if nbytes == 0 or not root.flags.c_contiguous:
+        return False
+    key = id(root)
+    with _pin_lock:
+        if key in _pinned:
+            return True
+        ptr = root.ctypes.data
+        if not _host_register(ptr, nbytes):
+            metrics.inc("mem_pin_failures")
+            return False
+        _pinned.add(key)
+        _pinned_bytes += nbytes
+        metrics.set_gauge("mem_pinned_bytes", _pinned_bytes)
+        weakref.finalize(root, _page_unlock, key, ptr, nbytes).atexit = False
+    return True
+
+
+def _page_unlock(key: int, ptr: int, nbytes: int) -> None:
+    global _pinned_bytes
+    with _pin_lock:
+        _host_unregister(ptr)
+        _pinned.discard(key)
+        _pinned_bytes -= nbytes
+        metrics.set_gauge("mem_pinned_bytes", _pinned_bytes)
+
+
 class _MemEntry:
     """One stored file: a decoded (read-only) array or a raw blob.
 
     ``dtype`` is an array's on-disk dtype name (``"bfloat16"`` for a bf16
     array held as its uint16 view); it defaults to the array's own.
+    ``pinned``: the array's memory is page-locked (:meth:`lock_pages`).
     """
 
-    __slots__ = ("array", "blob", "digest", "nbytes", "dtype")
+    __slots__ = ("array", "blob", "digest", "nbytes", "dtype", "pinned")
 
     def __init__(self, array: Optional[np.ndarray], blob: Optional[bytes],
                  digest: Tuple[int, int], dtype: Optional[str] = None):
@@ -141,6 +221,12 @@ class _MemEntry:
         self.digest = digest
         self.dtype = dtype
         self.nbytes = array.nbytes if array is not None else len(blob or b"")
+        self.pinned = False
+
+    def lock_pages(self) -> None:
+        """Page-lock the array's memory in place (a blob stays as it is)."""
+        if self.array is not None and not self.pinned:
+            self.pinned = _page_lock(self.array)
 
     def verify(self, device="cuda") -> bool:
         """Does the payload still match its publish-time digest (computed
@@ -267,7 +353,11 @@ class MemFabric:
 
     def replace_entry(self, name: str, owner: int, version: int, rel: str,
                       entry: "_MemEntry") -> None:
-        """Swap in a repaired entry for every holder of (owner, version)."""
+        """Swap in a repaired entry for every holder of (owner, version);
+        it is page-locked when the entry it replaces was."""
+        mv, _ = self.lookup(name, owner, version)   # replicas alias it
+        if mv is not None and rel in mv.files and mv.files[rel].pinned:
+            entry.lock_pages()
         with self._lock:
             for slot in self.slots.get(name, {}).values():
                 mv = slot.get((owner, version))
@@ -472,6 +562,9 @@ class MemStore(StorageTier):
                 + (str(decode_err) if decode_err is not None else
                    f"budget exceeded ({self.budget} bytes/rank)")
             )
+        if _page_lockable(self.device):        # after the decision: a
+            for entry in files.values():       # refused version locks nothing
+                entry.lock_pages()
         self.fabric.insert(
             self.name, self._holders(self.rank), self.rank, version,
             _MemVersion(files), world=self.size,

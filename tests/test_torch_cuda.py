@@ -9,6 +9,8 @@ package, so it runs where only the port is installed:
 (``--noconftest``: ``tests/conftest.py`` imports the reference package.)
 """
 import dataclasses
+import gc
+import warnings
 
 import numpy as np
 import pytest
@@ -16,7 +18,8 @@ import torch
 import torch.utils._pytree
 
 from repro_torch.configs import get_config, register_config
-from repro_torch.core import Box, Checkpoint, CraftEnv
+from repro_torch.core import (Box, Checkpoint, CheckpointError, CraftEnv,
+                              MemFabric, mem_level, metrics, trace)
 from repro_torch.kernels.checksum import ops as ck_ops
 from repro_torch.kernels.checksum.kernel import checksum_rows
 from repro_torch.kernels.checksum.ref import checksum_rows_ref
@@ -1124,3 +1127,128 @@ def test_elastic_restore_on_the_card(cuda, tmp_path):
     assert all(r["mesh"] == (1, 2) for r in out["readers"])
     assert sum(w["launches"]["snapshot"] for w in out["writers"]) > 0
     assert sum(r["launches"]["checksum"] for r in out["readers"]) > 0
+
+
+class _Ranks:
+    """Rank ``rank`` of ``size`` in one process (no exchange needed)."""
+
+    def __init__(self, rank, size):
+        self.rank, self.size = rank, size
+
+    def node_id(self):
+        return self.rank
+
+    def procs_per_node(self):
+        return 1
+
+    def barrier(self, channel="main"):
+        pass
+
+    def allreduce(self, v, op="sum", channel="main"):
+        return v
+
+    def allreduce_min(self, v):
+        return v
+
+    def bcast(self, v, root=0, channel="main"):
+        return v
+
+
+def _mem_env(tmp_path):
+    return CraftEnv.capture({"CRAFT_TIER_CHAIN": "mem",
+                             "CRAFT_MEM_SCRATCH": str(tmp_path / "shm"),
+                             "CRAFT_MEM_REPLICAS": "1"})
+
+
+@pytest.fixture()
+def fabric():
+    MemFabric.instance().reset()
+    gc.collect()
+    metrics.install()
+    yield MemFabric.instance()
+    MemFabric.instance().reset()
+    gc.collect()
+    metrics.uninstall()
+
+
+def _write(env, name, state, comm=None):
+    with Checkpoint(name, comm, env=env) as cp:
+        cp.add("state", Box(state))
+        cp.commit()
+        cp.update_and_write(1)
+
+
+def test_memory_tier_payloads_are_page_locked_on_the_card(cuda, tmp_path,
+                                                          fabric):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    _write(_mem_env(tmp_path), "pin", {
+        "w": torch.randn((1000, 333), generator=g, device=cuda),
+        "h": torch.randn((77,), generator=g, device=cuda,
+                         dtype=torch.bfloat16),
+        "n": torch.arange(3, device=cuda)})
+    arrays = [e for _, _, _, e in fabric.entries("pin") if e.array is not None]
+    assert len(arrays) == 3
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")         # read-only arrays
+        assert all(torch.from_numpy(e.array).is_pinned() for e in arrays)
+    gauges = metrics.snapshot()["gauges"]
+    assert gauges["mem_pinned_bytes"] == sum(e.nbytes for e in arrays)
+    del arrays
+    fabric.reset()
+    gc.collect()
+    assert metrics.snapshot()["gauges"]["mem_pinned_bytes"] == 0
+    assert metrics.snapshot()["counters"].get("mem_pin_failures", 0) == 0
+
+
+def test_a_gib_round_trip_through_the_tier_copies_by_dma(cuda, tmp_path,
+                                                         fabric):
+    env = _mem_env(tmp_path)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    src = torch.randint(-2**31, 2**31 - 1, (1 << 28,), generator=g,
+                        device=cuda, dtype=torch.int32)   # 1 GiB
+    _write(env, "gib", {"x": src})
+    live = {"x": torch.zeros_like(src)}
+    trace.install_memory()
+    try:
+        with Checkpoint("gib", env=env) as cp:
+            cp.add("state", Box(live))
+            cp.commit()
+            assert cp.restart_if_needed()
+            assert cp.stats["restore_tier"] == "mem"
+        spans = trace.drain()[0]
+    finally:
+        trace.uninstall()
+    assert torch.equal(live["x"], src)
+    (h2d,) = [s for s in spans if isinstance(s, trace.SpanRecord)
+              and s.name == "craft::cp.h2d"]
+    assert h2d.fields == {"bytes": 1 << 30, "pinned": 1}
+
+
+def test_a_rotted_page_locked_replica_still_fails(cuda, tmp_path, fabric):
+    env = _mem_env(tmp_path)
+    for rank in range(2):
+        _write(env, "rot", {"w": torch.full((4096,), float(rank),
+                                            device=cuda)}, _Ranks(rank, 2))
+    fabric.drop_rank(0)            # rank 0's shards now live in a replica
+    rel = fabric.corrupt_entry("rot", 0, 1, rel=next(
+        r for o, _, r, e in fabric.entries("rot")
+        if o == 0 and e.array is not None))
+    assert fabric.lookup("rot", 0, 1)[0].files[rel].pinned
+    with Checkpoint("rot", _Ranks(0, 2), env=env) as cp:
+        cp.add("state", Box({"w": torch.zeros(4096, device=cuda)}))
+        cp.commit()
+        with pytest.raises(CheckpointError, match="digest mismatch"):
+            cp.restart_if_needed()
+
+
+def test_a_refused_page_lock_leaves_no_error_behind(cuda):
+    """The runtime keeps a failed registration's error for the next kernel
+    launch check; the tier consumes it, so the next kernel runs."""
+    owner = np.zeros(1 << 20, np.uint8)
+    assert mem_level._host_register(owner.ctypes.data, owner.nbytes)
+    try:
+        # a range inside a registered one is refused
+        assert not mem_level._host_register(owner.ctypes.data + 4096, 4096)
+        assert torch.ones(3, device=cuda).mul(2).sum().item() == 6.0
+    finally:
+        mem_level._host_unregister(owner.ctypes.data)

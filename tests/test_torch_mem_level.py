@@ -8,6 +8,8 @@ digest-verified), replica insufficiency falling back to the disk tiers, the
 collective budget refusal, and the AFT shrink-recovery path that restores
 from peer memory with the disk tiers entirely absent.
 """
+import collections
+import gc
 import shutil
 
 import numpy as np
@@ -17,6 +19,7 @@ import torch
 
 from repro_torch.core import Box, CheckpointError, MemFabric, aft_zone
 from repro_torch.core import Checkpoint as _Checkpoint
+from repro_torch.core import mem_level, metrics
 from repro_torch.core.comm_sim import SimWorld
 from repro_torch.core.env import CraftEnv
 from repro_torch.core.mem_level import MemStore, MemTierError
@@ -390,3 +393,151 @@ class TestPortTensors:
         assert cp2.stats["restore_tier"] == "mem"
         cp2.close()
         assert np.array_equal(out, src)
+
+
+class TestPageLock:
+    """Resident payloads page-locked in place on a card's store: the
+    registration hooks stubbed, so the CPU runs each way in and out."""
+
+    @pytest.fixture()
+    def hooks(self, monkeypatch):
+        calls = {"register": [], "unregister": []}
+
+        def register(ptr, nbytes):
+            calls["register"].append((ptr, nbytes))
+            return calls.get("refuse") is None
+
+        monkeypatch.setattr(mem_level, "_host_register", register)
+        monkeypatch.setattr(mem_level, "_host_unregister",
+                            calls["unregister"].append)
+        metrics.install()
+        yield calls
+        MemFabric.instance().reset()    # released into this test's stubs
+        gc.collect()
+        metrics.uninstall()
+
+    @staticmethod
+    def _card(monkeypatch):
+        """Take the card's branch (the store still digests on the CPU)."""
+        monkeypatch.setattr(mem_level, "_page_lockable", lambda device: True)
+
+    @staticmethod
+    def _publish(tmp_path, versions=(1,), **extra):
+        env = _env(tmp_path, CRAFT_TIER_CHAIN="mem", **extra)
+        state = {"w": torch.arange(4096, dtype=torch.float32),
+                 "b": torch.ones(7, dtype=torch.bfloat16)}
+        cp = Checkpoint("pl", FakeComm(0, 1), env=env)
+        cp.add("state", Box(state))
+        cp.add("it", Box(0))
+        cp.commit()
+        for v in versions:
+            cp.update_and_write(v)
+        cp.close()
+        return env, state
+
+    @staticmethod
+    def _arrays(version=None):
+        return [e for _, v, _, e in MemFabric.instance().entries("pl")
+                if e.array is not None and version in (None, v)]
+
+    @staticmethod
+    def _gauge(name):
+        return metrics.snapshot()["gauges"].get(name, 0.0)
+
+    def test_cpu_store_keeps_pageable_arrays(self, tmp_path, hooks):
+        self._publish(tmp_path)
+        arrays = self._arrays()
+        assert arrays and not any(e.pinned for e in arrays)
+        assert all(type(e.array) is np.ndarray for e in arrays)
+        assert hooks["register"] == []
+        assert self._gauge("mem_pinned_bytes") == 0.0
+
+    @pytest.mark.parametrize("way", ["prune", "drop_version",
+                                     "replace_entry", "wipe", "reset",
+                                     "drop_rank", "forget_version"])
+    def test_every_way_out_releases_each_payload_once(
+            self, tmp_path, monkeypatch, hooks, way):
+        self._card(monkeypatch)
+        env, _ = self._publish(tmp_path, versions=(1, 2),
+                               CRAFT_KEEP_VERSIONS="1" if way == "prune"
+                               else "2")
+        fabric = MemFabric.instance()
+        if way == "prune":          # v-1 left when v-2 was published
+            leaving = hooks["register"][:len(hooks["register"]) // 2]
+        else:
+            leaving = [(e.array.ctypes.data, e.nbytes)
+                       for e in self._arrays(version=1)]
+            assert len(leaving) == 2 and all(
+                e.pinned for e in self._arrays())
+            if way == "drop_version":
+                fabric.drop_version("pl", 1)
+            elif way == "replace_entry":
+                rel = next(r for _, v, r, e in fabric.entries("pl")
+                           if v == 1 and e.array is not None)
+                old = fabric.lookup("pl", 0, 1)[0].files[rel]
+                leaving = [(old.array.ctypes.data, old.nbytes)]
+                del old
+                fabric.corrupt_entry("pl", 0, 1, rel=rel)
+                # the rotted copy takes the place's page lock
+                assert fabric.lookup("pl", 0, 1)[0].files[rel].pinned
+            elif way == "wipe":
+                fabric.wipe("pl")
+            elif way == "reset":
+                fabric.reset()
+            elif way == "drop_rank":
+                fabric.drop_rank(0)
+            else:
+                MemStore("pl", FakeComm(0, 1), env).forget_version(1)
+        gc.collect()
+        if way in ("wipe", "reset", "drop_rank"):    # v-2 left as well
+            leaving = hooks["register"][len(hooks["register"]) // 2:] \
+                + leaving
+        released = collections.Counter(hooks["unregister"])
+        assert released == collections.Counter(p for p, _ in leaving)
+        held = {p: n for p, n in hooks["register"] if p not in released}
+        assert self._gauge("mem_pinned_bytes") == float(sum(held.values()))
+        fabric.reset()
+        gc.collect()
+        assert self._gauge("mem_pinned_bytes") == 0.0
+        assert sorted(hooks["unregister"]) == sorted(
+            p for p, _ in hooks["register"])
+
+    def test_entries_sharing_memory_lock_it_once(self, hooks):
+        owner = np.arange(1024, dtype=np.float32)
+        held = (owner.ctypes.data, owner.nbytes)
+        entries = [mem_level._MemEntry(owner.reshape(32, 32), None, (0, 0)),
+                   mem_level._MemEntry(owner[:], None, (0, 0))]
+        del owner
+        for entry in entries:
+            entry.lock_pages()
+        assert [entry.pinned for entry in entries] == [True, True]
+        assert hooks["register"] == [held]
+        del entry, entries[0]
+        gc.collect()
+        assert hooks["unregister"] == []      # a view still holds it
+        entries.clear()
+        gc.collect()
+        assert len(hooks["unregister"]) == 1
+        assert self._gauge("mem_pinned_bytes") == 0.0
+
+    def test_a_refused_lock_keeps_the_payload_pageable(
+            self, tmp_path, monkeypatch, hooks):
+        self._card(monkeypatch)
+        hooks["refuse"] = True
+        env, state = self._publish(tmp_path)
+        arrays = self._arrays()
+        assert len(hooks["register"]) == len(arrays) == 2
+        assert not any(e.pinned for e in arrays)
+        assert metrics.snapshot()["counters"]["mem_pin_failures"] == 2.0
+        assert self._gauge("mem_pinned_bytes") == 0.0
+        live = {"w": torch.zeros(4096), "b": torch.zeros(7, dtype=torch.bfloat16)}
+        cp = Checkpoint("pl", FakeComm(0, 1), env=env)
+        cp.add("state", Box(live))
+        cp.add("it", Box(0))
+        cp.commit()
+        assert cp.restart_if_needed()
+        assert cp.stats["restore_tier"] == "mem"
+        cp.close()
+        assert torch.equal(live["w"], state["w"])
+        assert torch.equal(live["b"], state["b"])
+        assert hooks["unregister"] == []

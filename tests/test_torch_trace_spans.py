@@ -218,6 +218,7 @@ def test_a_restore_through_the_memory_tier_records_its_spans(tmp_path):
         ("craft::cp.h2d", "craft::cp.restore", "craft::cp.restart",
          "craft::lanczos.solve")}
     assert sum(s.fields["bytes"] for s in h2d) == vector_bytes
+    assert {s.fields["pinned"] for s in h2d} == {0}   # a CPU store's arrays
     (restart,) = [s for s in spans if s.name == "craft::cp.restart"]
     (restore,) = [s for s in spans if s.name == "craft::cp.restore"]
     assert restart.fields == {"cp": "aftlan", "restored": True}
