@@ -643,7 +643,7 @@ class Checkpoint:
                 io_retries=self.env.io_retries,
                 io_retry_backoff_ms=self.env.io_backoff_ms,
             )
-            overrides = store.write_ctx_overrides()
+            overrides = store.write_ctx_overrides(staged)
             if overrides:
                 ctx = dataclasses.replace(ctx, **overrides)
             # Independent checkpointables flush in parallel across the IO
@@ -652,7 +652,7 @@ class Checkpoint:
             jobs = []
             for key, item in self._map.items():
                 sub = staged / key
-                sub.mkdir(parents=True, exist_ok=True)
+                storage.make_dir(sub, ctx)
                 jobs.append(
                     lambda item=item, sub=sub, key=key:
                     self._run_item_write(item, sub, ctx, slot, version, key))
@@ -722,6 +722,13 @@ class Checkpoint:
         try:
             item.write(sub, ctx)
         except OSError as exc:
+            if ctx.files is not None and exc.filename is not None:
+                # storage's file table touches no file: the item did
+                raise CheckpointError(
+                    f"{slot} tier v-{version} array {key!r}: "
+                    f"{type(item).__name__} opened {exc.filename} itself; "
+                    "a checkpointable does its I/O through storage with the "
+                    "ctx it is handed") from exc
             msg = (f"{slot} tier v-{version} array {key!r}: "
                    f"{exc.strerror or exc}")
             wrapped = type(exc)(exc.errno, msg) if exc.errno is not None \
@@ -856,11 +863,8 @@ class Checkpoint:
             vdir = store.materialize(version)
         except CheckpointError as exc:
             return f"{label}: {exc}"
-        if vdir is None or not Path(vdir).is_dir():
+        if vdir is None:
             return f"{label}: version v-{version} not present"
-        missing = self._manifest_missing(store, Path(vdir), version)
-        if missing:
-            return f"{label}: v-{version} incomplete, missing {missing[:3]}"
         # Delta chain: every base version the v2 refs resolve through
         # must be materialized on this same tier before reading; a hole
         # in the chain fails this tier explicitly (no decode crash).
@@ -884,6 +888,9 @@ class Checkpoint:
                 "aux_dirs", tuple(Path(a) for a in aux))
         overrides["io_stats"] = {}
         ctx = dataclasses.replace(base_ctx, **overrides)
+        missing = self._manifest_missing(store, Path(vdir), version, ctx)
+        if missing:
+            return f"{label}: v-{version} incomplete, missing {missing[:3]}"
         try:
             # independent items restore in parallel (chunk digest checks
             # and decompression fan out across the same pool underneath)
@@ -1006,7 +1013,8 @@ class Checkpoint:
         return files
 
     @staticmethod
-    def _manifest_missing(store, vdir: Path, version: int) -> list:
+    def _manifest_missing(store, vdir: Path, version: int,
+                          ctx: IOContext) -> list:
         """Manifest files absent from ``vdir`` (the metadata's file-set check).
 
         The stored checksum manifest describes the *latest* published version
@@ -1018,7 +1026,7 @@ class Checkpoint:
             return []
         return [
             rel for rel in meta.get("checksums", {})
-            if not (vdir / rel).exists()
+            if not storage.exists(vdir / rel, ctx)
         ]
 
     # ------------------------------------------------------- health probing

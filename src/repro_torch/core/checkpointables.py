@@ -96,13 +96,13 @@ class PodCp(CpBase):
             payload = {"kind": kind, "value": val}
         else:
             raise CheckpointError(f"not a POD: {type(val)}")
-        storage.write_json(dir_path / "pod.json", payload)
+        storage.write_json(dir_path / "pod.json", payload, ctx)
 
     def read(self, dir_path: Path, ctx: IOContext) -> None:
         p = dir_path / "pod.json"
-        if not p.exists():
+        if not storage.exists(p, ctx):
             raise CheckpointError(f"missing {p}")
-        payload = storage.read_json(p)
+        payload = storage.read_json(p, ctx)
         if payload["kind"] == "complex":
             self.box.value = complex(payload["re"], payload["im"])
         else:
@@ -279,8 +279,8 @@ def _collect_manifests(dir_path: Path, ctx: IOContext, pattern: str) -> list:
     dir — its delta refs resolve against ``ctx.base_dirs`` directly.
     """
     found = {}
-    for mp in dir_path.glob(pattern):
-        found[mp.name] = (storage.read_json(mp), dir_path, None)
+    for mp in storage.glob(dir_path, pattern, ctx):
+        found[mp.name] = (storage.read_json(mp, ctx), dir_path, None)
     for d, root in _aux_item_dirs(dir_path, ctx):
         for mp in d.glob(pattern):
             if mp.name not in found:
@@ -430,7 +430,7 @@ class TorchTensorCp(CpBase):
             shards_meta.append({"file": fname, "index": index})
         storage.write_json(
             dir_path / f"array-{ctx.proc_rank}.json",
-            {**self._meta, "shards": shards_meta},
+            {**self._meta, "shards": shards_meta}, ctx,
         )
 
     def read(self, dir_path: Path, ctx: IOContext) -> None:
@@ -576,7 +576,8 @@ class PytreeCp(CpBase):
                 manifest["leaves"].append(
                     {"kind": "pod", "value": _pod_json(item["data"])}
                 )
-        storage.write_json(dir_path / f"tree-{ctx.proc_rank}.json", manifest)
+        storage.write_json(dir_path / f"tree-{ctx.proc_rank}.json", manifest,
+                           ctx)
 
     def read(self, dir_path: Path, ctx: IOContext) -> None:
         # parse every writer's manifest once up front; peer version roots
@@ -681,7 +682,7 @@ class ShardCp(CpBase):
                     "file": fname,
                     "index": [[lo, hi] for lo, hi in self.index],
                 }],
-            },
+            }, ctx,
         )
 
     def read(self, dir_path: Path, ctx: IOContext) -> None:

@@ -59,15 +59,12 @@ class IOContext:
     # the card and digests them with the checksum kernel; "cpu" digests them
     # in numpy.  Restored tensors land here when no live tensor says where.
     device: str = "cuda"
-    # Memory-tier fast path: maps str(path) of an array file to its already-
-    # decoded (read-only) ndarray; ``storage.read_array`` serves hits without
-    # touching the filesystem or re-running the codec.  Installed by
-    # ``MemStore.read_ctx_overrides`` (payloads are digest-verified at
-    # publish, so no re-verification happens on this path).
-    array_cache: Optional[dict] = None
-    # The on-disk dtype names of the ``array_cache`` entries (same keys):
-    # bfloat16/fp8 arrays travel as same-width unsigned views.
-    array_dtypes: Optional[dict] = None
+    # In-memory file table (the memory tier's version): {path relative to
+    # ``rel_root``: (host array, on-disk dtype name) or a JSON file's bytes}.
+    # When set, ``storage``'s file functions put and take entries here and
+    # touch no file; bfloat16/fp8 arrays are kept as same-width unsigned
+    # views beside their names.  Installed by ``MemStore``'s ctx overrides.
+    files: Optional[dict] = None
     # --- delta codec (on-disk format v2) -----------------------------------
     # Write side: ``delta_prev`` maps each file's manifest name to the chunk
     # manifest of the previous version on the *same tier*
@@ -210,6 +207,12 @@ class CpBase(abc.ABC):
         writes may fold this into ``write()``).
       * ``write(dir_path, ctx)`` — serialize the buffer into ``dir_path``.
       * ``read(dir_path, ctx)`` — restore the live data from ``dir_path``.
+
+    ``write`` and ``read`` do their I/O through ``storage``'s functions
+    with the ``ctx`` they are handed: on the memory tier ``dir_path`` is a
+    name only and the files live in ``ctx.files``, so a subclass that opens
+    files under ``dir_path`` itself fails there with a
+    :class:`CheckpointError` (the disk tiers behind it are still written).
     """
 
     #: When True the object snapshots into a private buffer on ``update()``

@@ -107,8 +107,10 @@ class CraftEnv:
                                      # rank's shards (round-robin, default 1)
     mem_budget_bytes: int            # CRAFT_MEM_BUDGET_BYTES: per-rank RAM
                                      # cap for the memory tier (0 = unlimited)
-    mem_scratch: Optional[Path]      # CRAFT_MEM_SCRATCH: staging/materialize
-                                     # dir (default /dev/shm when writable)
+    mem_scratch: Optional[Path]      # CRAFT_MEM_SCRATCH: read for parity with
+                                     # the reference's field set, used by
+                                     # nothing (the memory tier stages no
+                                     # files)
     # --- adaptive scheduler (docs/tuning.md) -------------------------------
     tier_every: tuple                # CRAFT_TIER_EVERY: per-tier cadence spec,
                                      # "mem:1,node:8,pfs:64" counts, "auto" =

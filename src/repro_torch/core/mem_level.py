@@ -8,8 +8,11 @@ ReStore (Hübner et al., 2022) observes that keeping checkpoint shards
 of magnitude faster than draining back to disk.  ``MemStore`` is that tier:
 
 * each rank keeps its **own shards** of the latest versions in RAM, decoded
-  and ready to hand back (``IOContext.array_cache`` fast path — restore is a
-  dictionary lookup, not a codec pass);
+  and ready to hand back — a version is held in memory from its first
+  write to its last read: the checkpointables write into an in-memory file
+  table (``IOContext.files``) that :meth:`MemStore.publish` turns into
+  resident entries, and a restore reads the same table back (a dictionary
+  lookup, not a codec pass; no file is created, written, read or deleted);
 * each rank additionally holds **replicas** of ``CRAFT_MEM_REPLICAS``
   partner ranks' shards, placed round-robin over the communicator (rank
   ``r``'s shards replicate to ranks ``r+1 .. r+R`` mod size), so any ``R``
@@ -34,12 +37,11 @@ per rank the fabric degrades to a process-local cache: a killed process
 loses its slots exactly as a real host loses its RAM, and restore falls back
 to the node/PFS tiers.  RAM shards stay host numpy arrays; bfloat16/fp8
 arrays are kept as their same-width unsigned views beside their on-disk
-dtype names (``IOContext.array_dtypes``).  For a store on a card each
-resident array is page-locked in place (``cudaHostRegister`` of its own
-memory, no copy), so a restore's copy onto the card runs as a direct DMA
-instead of through CUDA's pageable staging buffer; the lock is released
-with the memory, once the entry and every view of it are gone.  A CPU
-store keeps plain pageable arrays.
+dtype names.  For a store on a card each resident array is page-locked in
+place (``cudaHostRegister`` of its own memory, no copy), so a restore's
+copy onto the card runs as a direct DMA instead of through CUDA's pageable
+staging buffer; the lock is released with the memory, once the entry and
+every view of it are gone.  A CPU store keeps plain pageable arrays.
 
 Fail-stop modelling: ``SimWorld.kill`` fires fault-domain hooks (see
 :meth:`repro_torch.core.comm.FTComm.fault_domain`); the fabric drops the dead
@@ -56,8 +58,6 @@ raises :class:`MemTierError` on **every** rank (all-or-nothing), and
 from __future__ import annotations
 
 import os
-import shutil
-import tempfile
 import threading
 import weakref
 from pathlib import Path
@@ -66,66 +66,24 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import metrics, storage, tiers, trace
-from repro_torch.core.cpbase import CheckpointError, IOContext
+from repro_torch.core import metrics, tiers, trace
+from repro_torch.core.cpbase import CheckpointError
 from repro_torch.core.tiers import StorageTier
 from repro_torch.kernels.checksum import ops as checksum_ops
 
-#: single chunk per file for memory-tier staging: the staged file lives for
-#: milliseconds on RAM-backed scratch, so chunked encodes buy nothing
-_ONE_CHUNK = 1 << 40
+#: Root of the names a staged or restored version goes by.  A name only:
+#: nothing can be made below a device file, so a checkpointable that opens
+#: files under it itself fails instead of writing somewhere real.
+_ROOT = Path(os.devnull) / "craft-mem"
 
 
 class MemTierError(CheckpointError):
-    """Memory-tier publish refused (budget exceeded / undecodable payload).
+    """Memory-tier publish refused (budget exceeded).
 
     Raised collectively — every rank of the communicator raises together, so
     ``Checkpoint`` skips the memory tier for the version as a whole and the
     node/PFS write-through still happens.
     """
-
-
-_SCRATCH_PREFIX = "craft-mem-"
-_swept_stale_scratch = False
-
-
-def _sweep_stale_scratch(parent: Path) -> None:
-    """Remove scratch roots left by dead processes (kill -9 mid-stage).
-
-    The disk tiers sweep stale ``.tmp-*`` at startup; this is the cross-PID
-    analog for the RAM tier — without it every crash/restart cycle leaks a
-    checkpoint-sized directory on tmpfs (host RAM) until /dev/shm fills.
-    Runs once per process.
-    """
-    global _swept_stale_scratch
-    if _swept_stale_scratch:
-        return
-    _swept_stale_scratch = True
-    for p in parent.glob(f"{_SCRATCH_PREFIX}*"):
-        try:
-            pid = int(p.name[len(_SCRATCH_PREFIX):])
-        except ValueError:
-            continue
-        if pid == os.getpid():
-            continue
-        try:
-            os.kill(pid, 0)            # 0 = liveness probe, no signal sent
-        except ProcessLookupError:
-            shutil.rmtree(p, ignore_errors=True)
-        except PermissionError:
-            pass                       # alive, owned by another user
-
-
-def default_scratch_root() -> Path:
-    """RAM-backed scratch for staging/materialization (tmpfs when possible).
-
-    PID-scoped so concurrent jobs on one host never collide; stale roots of
-    dead PIDs are swept on first use."""
-    shm = Path("/dev/shm")
-    parent = shm if shm.is_dir() and os.access(shm, os.W_OK) \
-        else Path(tempfile.gettempdir())
-    _sweep_stale_scratch(parent)
-    return parent / f"{_SCRATCH_PREFIX}{os.getpid()}"
 
 
 # -- page-locked payloads ----------------------------------------------------
@@ -223,6 +181,10 @@ class _MemEntry:
         self.nbytes = array.nbytes if array is not None else len(blob or b"")
         self.pinned = False
 
+    @property
+    def payload(self):
+        return self.array if self.array is not None else self.blob
+
     def lock_pages(self) -> None:
         """Page-lock the array's memory in place (a blob stays as it is)."""
         if self.array is not None and not self.pinned:
@@ -231,8 +193,7 @@ class _MemEntry:
     def verify(self, device="cuda") -> bool:
         """Does the payload still match its publish-time digest (computed
         on ``device``)?"""
-        payload = self.array if self.array is not None else self.blob
-        return tuple(checksum_ops.digest_bytes(payload, device)) \
+        return tuple(checksum_ops.digest_bytes(self.payload, device)) \
             == tuple(self.digest)
 
 
@@ -496,12 +457,9 @@ class MemStore(StorageTier):
         self.replicas = min(max(0, env.mem_replicas), self.size - 1)
         self.budget = env.mem_budget_bytes
         self.keep_versions = max(1, env.keep_versions)
-        root = env.mem_scratch if env.mem_scratch is not None \
-            else default_scratch_root()
-        self._scratch = Path(root) / self.name / f"r{self.rank}"
-        self._caches: Dict[int, Tuple[Dict[str, np.ndarray],
-                                      Dict[str, str]]] = {}
-        tiers.sweep_tmp_dirs(self._scratch)
+        self._root = _ROOT / self.name / f"r{self.rank}"
+        self._staged: Dict[Path, dict] = {}   # staged root -> file table
+        self._tables: Dict[int, dict] = {}    # materialized version -> table
         domain = getattr(comm, "fault_domain", lambda: None)()
         if domain is not None:
             domain.add_kill_hook(self.fabric.drop_rank)
@@ -517,21 +475,15 @@ class MemStore(StorageTier):
     def stage(self, version: int) -> Path:
         # rank-distinct staging: each rank's shard set is its own payload
         # (the disk tiers share one staging dir; RAM slots are per rank)
-        tmp = self._scratch / tiers.staging_dir_name(version)
-        tmp.mkdir(parents=True, exist_ok=True)
-        return tmp
+        staged = self._root / tiers.staging_dir_name(version)
+        self._staged[staged] = {}
+        return staged
 
     def abort(self, staged: Path) -> None:
-        shutil.rmtree(staged, ignore_errors=True)
+        self._staged.pop(staged, None)
 
-    def write_ctx_overrides(self) -> dict:
-        # single-chunk, uncompressed encode: the staged file is decoded back
-        # at publish, so chunking/compression only add work.  Delta encoding
-        # is forced off — the fabric stores fully-decoded arrays, so a delta
-        # staged file would only add a resolve pass at publish.
-        return {"chunk_bytes": _ONE_CHUNK, "compress": "none",
-                "codec_version": min(self.env.codec_version, 1),
-                "delta_prev": None, "chunks_db": None}
+    def write_ctx_overrides(self, staged: Path) -> dict:
+        return {"files": self._staged[staged]}
 
     def publish(self, staged: Path, version: int,
                 extra_meta: Optional[dict] = None) -> None:
@@ -544,27 +496,37 @@ class MemStore(StorageTier):
         # fabric coverage for the chaos engine: an injected fault here makes
         # the RAM tier misbehave exactly like a failing fabric insert would
         self._chaos_check("fabric", path=staged)
-        files, decode_err = self._slurp(staged)
-        nbytes = sum(e.nbytes for e in files.values())
+        table = self._staged.pop(staged)
+        nbytes = sum(len(v) if isinstance(v, bytes) else v[0].nbytes
+                     for v in table.values())
         # replica-placement exchange: every rank learns every owner's payload
         # size (allgather); holders can then project their slot load exactly
         entries = self.comm.allreduce((self.rank, int(nbytes)), op="list")
         if not isinstance(entries, list):      # single-rank / stub comms
             entries = [entries]
         sizes = {int(r): int(n) for r, n in entries}
-        fits = decode_err is None and self._fits(version, sizes)
-        ok = self.comm.allreduce(1 if fits else 0, op="min")
+        ok = self.comm.allreduce(1 if self._fits(version, sizes) else 0,
+                                 op="min")
         self.comm.barrier()                    # all ranks decided together
         if not ok:
-            self.abort(staged)
             raise MemTierError(
-                f"memory tier skipped {self.name} v-{version}: "
-                + (str(decode_err) if decode_err is not None else
-                   f"budget exceeded ({self.budget} bytes/rank)")
-            )
-        if _page_lockable(self.device):        # after the decision: a
-            for entry in files.values():       # refused version locks nothing
-                entry.lock_pages()
+                f"memory tier skipped {self.name} v-{version}: budget "
+                f"exceeded ({self.budget} bytes/rank)")
+        lock = _page_lockable(self.device)     # after the decision: a
+        files = {}                             # refused version locks nothing
+        for rel, value in sorted(table.items()):
+            if isinstance(value, bytes):
+                entry = _MemEntry(None, value, None)
+            else:
+                # an owning copy: the device snapshotter refills its host
+                # mirrors in place at the next update()
+                entry = _MemEntry(value[0].copy(order="C"), None, None,
+                                  value[1])
+                if lock:                       # first: the digest's copy
+                    entry.lock_pages()         # onto the card runs by DMA
+            entry.digest = checksum_ops.digest_bytes(entry.payload,
+                                                     self.device)
+            files[rel] = entry
         self.fabric.insert(
             self.name, self._holders(self.rank), self.rank, version,
             _MemVersion(files), world=self.size,
@@ -572,41 +534,6 @@ class MemStore(StorageTier):
         self.comm.barrier()                    # every owner's shards placed
         kept = sorted(self.fabric.versions(self.name))[-self.keep_versions:]
         self.fabric.prune(self.name, self.rank, kept)
-        shutil.rmtree(staged, ignore_errors=True)
-
-    def _slurp(self, staged: Path
-               ) -> Tuple[Dict[str, _MemEntry], Optional[Exception]]:
-        """Decode every staged file into a fabric entry, digesting payloads.
-
-        Decode failures don't raise here — the error is carried into the
-        collective publish decision so every rank aborts together instead of
-        deadlocking peers waiting in the exchange.
-        """
-        ctx = IOContext(
-            compress="none", checksum=self.env.checksum,
-            codec_version=self.env.codec_version, chunk_bytes=_ONE_CHUNK,
-            device=self.device,
-        )
-        files: Dict[str, _MemEntry] = {}
-        try:
-            for p in sorted(q for q in staged.rglob("*") if q.is_file()):
-                rel = str(p.relative_to(staged))
-                with open(p, "rb") as fh:
-                    is_array = fh.read(4) == storage._MAGIC
-                if is_array:
-                    arr = storage.read_array(p, ctx)  # verifies staged digest
-                    files[rel] = _MemEntry(
-                        arr, None,
-                        checksum_ops.digest_bytes(arr, self.device),
-                        storage.read_dtype_name(p))
-                else:
-                    blob = p.read_bytes()
-                    files[rel] = _MemEntry(
-                        None, blob,
-                        checksum_ops.digest_bytes(blob, self.device))
-        except (OSError, CheckpointError) as exc:
-            return {}, exc
-        return files, None
 
     def _fits(self, version: int, sizes: Dict[int, int]) -> bool:
         if self.budget <= 0:
@@ -635,17 +562,15 @@ class MemStore(StorageTier):
         return best
 
     def version_dir(self, version: int) -> Path:
-        return self._scratch / tiers.version_dir_name(version)
+        return self._root / tiers.version_dir_name(version)
 
     def materialize(self, version: int) -> Optional[Path]:
         """Assemble a complete restore view of ``version`` from the fabric.
 
-        Small non-array files (manifests, pods) are written under the
-        RAM-backed scratch so the checkpointables' globbing works unchanged;
-        decoded arrays stay in RAM and are served through the
-        ``IOContext.array_cache`` installed by :meth:`read_ctx_overrides`.
-        Replica payloads standing in for a dead owner are digest-verified;
-        a rank's own live copies are trusted process RAM.
+        The view is the union of every owner's entries, kept as the file
+        table :meth:`read_ctx_overrides` installs; the returned root is a
+        name only.  Replica payloads standing in for a dead owner are
+        digest-verified; a rank's own live copies are trusted process RAM.
         """
         world = self.fabric.versions(self.name).get(version)
         if world is None:
@@ -661,27 +586,17 @@ class MemStore(StorageTier):
                 # in ascending rank order — matching shared-dir semantics
                 if rel not in union or owner == self.rank:
                     union[rel] = (entry, own_slot)
-        vdir = self.version_dir(version)
-        shutil.rmtree(vdir, ignore_errors=True)
-        vdir.mkdir(parents=True, exist_ok=True)
-        cache: Dict[str, np.ndarray] = {}
-        dtypes: Dict[str, str] = {}
+        table = {}
         for rel, (entry, own_slot) in union.items():
             if not own_slot and not entry.verify(self.device):
-                shutil.rmtree(vdir, ignore_errors=True)
                 raise CheckpointError(
                     f"memory tier: replica digest mismatch for {rel!r} of "
                     f"{self.name} v-{version} (stale or corrupt replica)"
                 )
-            if entry.array is not None:
-                cache[str(vdir / rel)] = entry.array
-                dtypes[str(vdir / rel)] = entry.dtype
-            else:
-                out = vdir / rel
-                out.parent.mkdir(parents=True, exist_ok=True)
-                out.write_bytes(entry.blob)
-        self._caches = {version: (cache, dtypes)}
-        return vdir
+            table[rel] = entry.blob if entry.array is None \
+                else (entry.array, entry.dtype)
+        self._tables = {version: table}
+        return self.version_dir(version)
 
     def chunk_digests(self, version: int, chunk_bytes: int) -> Optional[dict]:
         """Per-file raw chunk digests of ``version``, straight from RAM.
@@ -724,9 +639,7 @@ class MemStore(StorageTier):
         # checksum "none": payloads were digest-verified at publish (and
         # replicas re-verified in materialize); re-hashing RAM on the fast
         # path would cost exactly the codec pass this tier exists to skip
-        cache, dtypes = self._caches.get(version, ({}, {}))
-        return {"array_cache": cache, "array_dtypes": dtypes,
-                "checksum": "none"}
+        return {"files": self._tables.get(version, {}), "checksum": "none"}
 
     def rehydrate(self, version: int) -> int:
         """Re-seed this rank's own fabric slots for ``version`` from peer
@@ -748,9 +661,8 @@ class MemStore(StorageTier):
         """Retract an unrepairable version from the fabric (scrub quarantine
         — restore then falls through to the disk tiers)."""
         self.fabric.drop_version(self.name, version)
-        self._caches.pop(version, None)
+        self._tables.pop(version, None)
 
     def invalidate_all(self) -> None:
         self.fabric.wipe(self.name)
-        self._caches = {}
-        shutil.rmtree(self._scratch, ignore_errors=True)
+        self._tables = {}

@@ -52,11 +52,17 @@ cannot name without ``ml_dtypes`` (``bfloat16``, the ``float8_*`` family)
 keep their on-disk names and travel on the host as same-width unsigned
 views: :func:`read_array` returns that view, :func:`read_tensor` the torch
 tensor of the named dtype.
+
+A context with a file table (``IOContext.files``, the memory tier) keeps
+each file as a table entry instead: an array with its dtype name, or a JSON
+file's bytes.  The functions below then put and take entries, under the
+same chaos gate and retries as a file write, and touch no file.
 """
 from __future__ import annotations
 
 import dataclasses
 import errno
+import fnmatch
 import json
 import os
 import shutil
@@ -268,6 +274,59 @@ def _retrying(fn, ctx: IOContext):
                              on_retry=ctx.record_retry)
 
 
+def _table_key(path: Path, ctx: IOContext) -> str:
+    """Key of ``path`` in ``ctx.files``: the path relative to the root."""
+    return str(Path(path).relative_to(ctx.rel_root))
+
+
+def _table_put(path: Path, value, nbytes: int, ctx: IOContext,
+               tearable: bool = False) -> None:
+    """Put one entry into ``ctx.files`` under the chaos gate and retries a
+    file write sees; a torn write puts nothing."""
+
+    def attempt():
+        if ctx.chaos is not None:
+            ctx.chaos.check("write", nbytes=nbytes, path=path)
+            if tearable and ctx.chaos.torn_limit(nbytes) is not None:
+                raise OSError(errno.EIO, f"chaos: torn write {path}")
+        ctx.files[_table_key(path, ctx)] = value
+
+    _retrying(attempt, ctx)
+
+
+def _table_get(path: Path, ctx: IOContext):
+    value = ctx.files.get(_table_key(path, ctx))
+    if value is None:
+        raise CheckpointError(f"missing checkpoint file {path}")
+    return value
+
+
+def make_dir(path: Path, ctx: IOContext) -> None:
+    """Create the directory ``path`` for a version's files (a file table
+    needs none)."""
+    if ctx.files is None:
+        path.mkdir(parents=True, exist_ok=True)
+
+
+def exists(path: Path, ctx: Optional[IOContext] = None) -> bool:
+    """Is there a file at ``path`` (an entry, with a file table)?"""
+    if ctx is None or ctx.files is None:
+        return path.exists()
+    return _table_key(path, ctx) in ctx.files
+
+
+def glob(dir_path: Path, pattern: str,
+         ctx: Optional[IOContext] = None) -> List[Path]:
+    """The files directly under ``dir_path`` whose names match ``pattern``
+    (the table's entries, with a file table)."""
+    if ctx is None or ctx.files is None:
+        return list(dir_path.glob(pattern))
+    parent = Path(_table_key(dir_path, ctx))
+    return [ctx.rel_root / k for k in ctx.files
+            if Path(k).parent == parent
+            and fnmatch.fnmatchcase(Path(k).name, pattern)]
+
+
 def _atomic_write_file(path: Path, parts, ctx: IOContext) -> None:
     """tmp → write parts → fsync → rename, with chaos + retry.
 
@@ -319,7 +378,10 @@ def write_array(path: Path, arr, ctx: IOContext) -> None:
     """Serialize ``arr`` (numpy array or CPU tensor) to ``path`` using the
     codec ``ctx`` selects."""
     arr, name = host_array(arr)
-    if ctx.codec_version == CODEC_V0:
+    if ctx.files is not None:
+        _table_put(path, (arr, name), int(arr.nbytes), ctx, tearable=True)
+        ctx.record_io(int(arr.nbytes), chunks=1)
+    elif ctx.codec_version == CODEC_V0:
         _write_array_v0(path, arr, name, ctx)
     elif ctx.codec_version == CODEC_V1:
         _write_array_v1(path, arr, name, ctx)
@@ -550,12 +612,9 @@ def read_tensor(path: Path, ctx: IOContext) -> torch.Tensor:
 
 
 def read_dtype_name(path: Path, ctx: Optional[IOContext] = None) -> str:
-    """On-disk dtype name of an array file (header-only read), or of the
-    memory tier's decoded copy when ``ctx.array_dtypes`` holds it."""
-    if ctx is not None and ctx.array_dtypes is not None:
-        name = ctx.array_dtypes.get(str(path))
-        if name is not None:
-            return name
+    """On-disk dtype name of an array file (header-only read)."""
+    if ctx is not None and ctx.files is not None:
+        return _table_get(path, ctx)[1]
     with open(path, "rb") as fh:
         return _parse_stream_header(fh, path)["dtype"]
 
@@ -564,16 +623,14 @@ def read_array(path: Path, ctx: IOContext) -> np.ndarray:
     """Read an array written by any codec version (v0 legacy or v1 chunked).
     Dtypes numpy cannot name come back as their same-width unsigned view.
 
-    When ``ctx.array_cache`` holds a decoded array for ``path`` (memory-tier
-    restore), it is returned directly as a read-only view — callers that need
-    ownership of the buffer must copy.
+    A file table's array is returned as a read-only view, unverified (the
+    memory tier digests its payloads itself) — callers that need ownership
+    of the buffer must copy.
     """
-    if ctx.array_cache is not None:
-        hit = ctx.array_cache.get(str(path))
-        if hit is not None:
-            view = hit.view()
-            view.setflags(write=False)
-            return view
+    if ctx.files is not None:
+        view = _table_get(path, ctx)[0].view()
+        view.setflags(write=False)
+        return view
     if not path.exists():
         raise CheckpointError(f"missing checkpoint file {path}")
 
@@ -896,8 +953,8 @@ class ChunkRangeReader:
       at its payload offset, digest-checked, decompressed, and cached for
       subsequent ranges; v2 ``ref`` chunks are chased through the delta base
       versions with the same machinery as the full reader.
-    * **memory-tier hits** (``ctx.array_cache``) slice the decoded array
-      already resident in RAM — no file IO at all.
+    * **file-table entries** (``ctx.files``, the memory tier) slice the
+      array already resident in RAM — no file IO at all.
     * **v0 monolithic blobs** have no chunk grid: the first range triggers
       one full decode (digest over the whole payload) which later ranges
       slice.
@@ -918,12 +975,10 @@ class ChunkRangeReader:
         self._hcache: dict = {}          # delta-base header/offset cache
         self._flat: Optional[np.ndarray] = None   # whole decoded payload
         self.header: Optional[dict] = None
-        if ctx.array_cache is not None:
-            hit = ctx.array_cache.get(str(self.path))
-            if hit is not None:
-                self._flat = _as_byte_view(hit)
-                self.nbytes = int(self._flat.size)
-                return
+        if ctx.files is not None:
+            self._flat = _as_byte_view(_table_get(self.path, ctx)[0])
+            self.nbytes = int(self._flat.size)
+            return
         if not self.path.exists():
             raise CheckpointError(f"missing checkpoint file {self.path}")
         with open(self.path, "rb") as fh:
@@ -1053,9 +1108,13 @@ def write_json(path: Path, obj, ctx: Optional[IOContext] = None) -> None:
     Manifests (``meta.json``, ``deltadeps-*.json``) gate restore decisions,
     so they get the full durability treatment — including the directory
     fsync that makes the rename itself crash-safe.  With a ``ctx`` the
-    write also runs under its chaos/retry policy like array payloads.
+    write also runs under its chaos/retry policy like array payloads; with
+    a file table the bytes become its entry.
     """
     payload = json.dumps(obj, indent=1).encode()
+    if ctx is not None and ctx.files is not None:
+        _table_put(path, payload, len(payload), ctx)
+        return
 
     def attempt():
         if ctx is not None and ctx.chaos is not None:
@@ -1078,7 +1137,9 @@ def write_json(path: Path, obj, ctx: Optional[IOContext] = None) -> None:
         attempt()
 
 
-def read_json(path: Path):
+def read_json(path: Path, ctx: Optional[IOContext] = None):
+    if ctx is not None and ctx.files is not None:
+        return json.loads(_table_get(path, ctx))
     with open(path) as fh:
         return json.load(fh)
 

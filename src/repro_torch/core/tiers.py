@@ -227,7 +227,8 @@ class StorageTier(abc.ABC):
 
     @abc.abstractmethod
     def stage(self, version: int) -> Path:
-        """Create and return the staging directory for ``version``."""
+        """Create and return the staging directory for ``version`` (a name
+        only, for a tier that keeps no files)."""
 
     @abc.abstractmethod
     def publish(self, staged: Path, version: int,
@@ -329,12 +330,11 @@ class StorageTier(abc.ABC):
         self._cost_ewma = None
 
     # -- per-tier IOContext adjustments -------------------------------------
-    def write_ctx_overrides(self) -> dict:
-        """IOContext field overrides for writes landing on this tier.
+    def write_ctx_overrides(self, staged: Path) -> dict:
+        """IOContext field overrides for writes into ``staged``.
 
-        A tier whose durability model differs from the default on-disk codec
-        assumptions (e.g. the RAM tier, which re-verifies at publish and
-        wants single-chunk encodes) overrides this; the default is no change.
+        A tier that does not keep files (the RAM tier, which installs an
+        in-memory file table) overrides this; the default is no change.
         """
         return {}
 
@@ -342,7 +342,7 @@ class StorageTier(abc.ABC):
         """IOContext field overrides for reads served by this tier.
 
         Called after :meth:`materialize` succeeded for ``version``; lets a
-        tier install fast paths (``array_cache``) or relax re-verification
+        tier install its file table (``files``) or relax re-verification
         for payloads it already verified.
         """
         return {}

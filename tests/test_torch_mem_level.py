@@ -8,8 +8,10 @@ digest-verified), replica insufficiency falling back to the disk tiers, the
 collective budget refusal, and the AFT shrink-recovery path that restores
 from peer memory with the disk tiers entirely absent.
 """
+import builtins
 import collections
 import gc
+import os
 import shutil
 
 import numpy as np
@@ -19,10 +21,13 @@ import torch
 
 from repro_torch.core import Box, CheckpointError, MemFabric, aft_zone
 from repro_torch.core import Checkpoint as _Checkpoint
-from repro_torch.core import mem_level, metrics
+from repro_torch.core import CpBase, IOContext
+from repro_torch.core import mem_level, metrics, storage
+from repro_torch.core.checkpointables import ShardCp
 from repro_torch.core.comm_sim import SimWorld
 from repro_torch.core.env import CraftEnv
 from repro_torch.core.mem_level import MemStore, MemTierError
+from repro_torch.kernels.checksum import ops as checksum_ops
 
 
 def Checkpoint(*args, **kwargs):
@@ -541,3 +546,215 @@ class TestPageLock:
         assert torch.equal(live["w"], state["w"])
         assert torch.equal(live["b"], state["b"])
         assert hooks["unregister"] == []
+
+
+class RawFileCp(CpBase):
+    """Breaks the I/O contract: opens its file under ``dir_path`` itself
+    instead of going through ``storage`` with its ``ctx``."""
+
+    def __init__(self, arr):
+        self.arr = arr
+
+    def update(self):
+        pass
+
+    def write(self, dir_path, ctx):
+        with open(dir_path / "raw.bin", "wb") as fh:
+            fh.write(self.arr.tobytes())
+
+    def read(self, dir_path, ctx):
+        with open(dir_path / "raw.bin", "rb") as fh:
+            self.arr[...] = np.frombuffer(fh.read(), self.arr.dtype)
+
+
+class TestFileTable:
+    """A version held in memory end to end: the checkpointables write into
+    an in-memory file table, the publish makes the resident entries from
+    it, and a restore reads them back — no file on the way."""
+
+    @staticmethod
+    def _items():
+        g = torch.Generator().manual_seed(5)
+        return {
+            "it": Box(11),
+            "arr": np.linspace(0.0, 1.0, 24),
+            "w": Box(torch.randn((9, 5), generator=g).to(torch.bfloat16)),
+            "tree": Box({"a": torch.arange(6, dtype=torch.int32),
+                         "n": np.arange(4.0), "p": 2.5}),
+            "blk": ShardCp(Box(np.arange(12.0).reshape(3, 4)), (6, 4),
+                           [[0, 3], [0, 4]]),
+        }
+
+    @pytest.fixture()
+    def file_ops(self, monkeypatch):
+        """Records every file or directory opened, made, listed, renamed
+        or deleted while ``rec["on"]``."""
+        rec = {"on": False, "ops": []}
+
+        def spy(name, fn):
+            def wrapper(*args, **kwargs):
+                if rec["on"]:
+                    rec["ops"].append((name, args[:1]))
+                return fn(*args, **kwargs)
+            return wrapper
+
+        for mod, name in [(builtins, "open"), (os, "open"), (os, "mkdir"),
+                          (os, "replace"), (os, "rename"), (os, "unlink"),
+                          (os, "rmdir"), (os, "scandir"), (os, "listdir")]:
+            monkeypatch.setattr(mod, name, spy(name, getattr(mod, name)))
+        return rec
+
+    @pytest.mark.parametrize("workers", ["1", "4"])
+    def test_write_and_restore_touch_no_file(self, tmp_path, file_ops,
+                                             workers):
+        env = _env(tmp_path, CRAFT_TIER_CHAIN="mem",
+                   CRAFT_IO_WORKERS=workers)
+        items = self._items()
+        cp = Checkpoint("ft", FakeComm(0, 1), env=env)
+        for key, obj in items.items():
+            cp.add(key, obj)
+        cp.commit()
+        file_ops["on"] = True
+        assert cp.update_and_write()
+        file_ops["on"] = False
+        cp.close()
+        assert cp.stats["mem_writes"] == 1
+
+        live = {
+            "it": Box(0), "arr": np.zeros(24),
+            "w": Box(torch.zeros((9, 5), dtype=torch.bfloat16)),
+            "tree": Box({"a": torch.zeros(6, dtype=torch.int32),
+                         "n": np.zeros(4), "p": 0.0}),
+            "blk": ShardCp(Box(np.zeros((3, 4))), (6, 4), [[0, 3], [0, 4]]),
+        }
+        cp2 = Checkpoint("ft", FakeComm(0, 1), env=env)
+        for key, obj in live.items():
+            cp2.add(key, obj)
+        cp2.commit()
+        file_ops["on"] = True
+        assert cp2.restart_if_needed()
+        file_ops["on"] = False
+        cp2.close()
+        assert cp2.stats["restore_tier"] == "mem"
+        assert file_ops["ops"] == []
+        scratch = tmp_path / "shm"
+        assert not scratch.exists() or not any(scratch.iterdir())
+        assert not any(tmp_path.rglob("*"))
+        assert live["it"].value == 11
+        assert np.array_equal(live["arr"], items["arr"])
+        assert torch.equal(live["w"].value, items["w"].value)
+        assert torch.equal(live["tree"].value["a"],
+                           items["tree"].value["a"])
+        assert np.array_equal(live["tree"].value["n"], np.arange(4.0))
+        assert live["tree"].value["p"] == 2.5
+        assert np.array_equal(live["blk"].box.value,
+                              np.arange(12.0).reshape(3, 4))
+
+    @pytest.mark.parametrize("kind", ["float32", "bfloat16", "uint16",
+                                      "pytree", "shard"])
+    def test_resident_entries_equal_the_node_tiers_files(self, tmp_path,
+                                                         kind):
+        if kind == "pytree":
+            obj = Box({"n": np.arange(5, dtype=np.int16), "p": 3, "s": "x",
+                       "t": torch.ones(3)})
+        elif kind == "shard":
+            obj = ShardCp(Box(np.arange(8.0).reshape(2, 4)), (4, 4),
+                          [[2, 4], [0, 4]])
+        else:
+            obj = Box((torch.arange(40).reshape(8, 5) * 37 % 1000)
+                      .to(getattr(torch, kind)))
+        env = _env(tmp_path, CRAFT_TIER_CHAIN="mem,node")
+        cp = Checkpoint("eq", FakeComm(0, 1), env=env)
+        cp.add("x", obj)
+        cp.add("it", Box(4))
+        cp.commit()
+        cp.update_and_write()
+        cp.close()
+        vdir = cp._node.version_dir(1)
+        on_disk = {str(p.relative_to(vdir)) for p in vdir.rglob("*")
+                   if p.is_file()}
+        resident = {rel: e for _, v, rel, e in
+                    MemFabric.instance().entries("eq") if v == 1}
+        assert set(resident) == on_disk
+        ctx = IOContext(checksum="fletcher", device="cpu")
+        n_arrays = 0
+        for rel, entry in resident.items():
+            path = vdir / rel
+            if entry.array is None:
+                assert entry.blob == path.read_bytes()
+            else:
+                n_arrays += 1
+                decoded = storage.read_array(path, ctx)
+                assert entry.dtype == storage.read_dtype_name(path)
+                assert entry.array.dtype == decoded.dtype
+                assert entry.array.shape == decoded.shape
+                assert entry.array.tobytes() == decoded.tobytes()
+            assert tuple(entry.digest) == tuple(
+                checksum_ops.digest_bytes(entry.payload, "cpu"))
+        assert n_arrays == (2 if kind == "pytree" else 1)
+
+    @pytest.mark.parametrize("kind", ["tensor", "pytree", "ndarray"])
+    def test_a_later_update_leaves_the_resident_version(self, tmp_path,
+                                                        kind):
+        """The host buffer a checkpointable writes from is refilled in
+        place by its next ``update()`` (a device snapshot's one host
+        mirror, an array's buffer): the resident copy must not alias it."""
+        env = _env(tmp_path, CRAFT_TIER_CHAIN="mem",
+                   CRAFT_DEVICE_SNAPSHOT="1", CRAFT_KEEP_VERSIONS="2")
+        t = torch.arange(64, dtype=torch.float32)
+        arr = np.arange(64.0)
+        obj = {"tensor": Box(t), "pytree": Box({"t": t}),
+               "ndarray": arr}[kind]
+        cp = Checkpoint("al", FakeComm(0, 1), env=env)
+        cp.add("x", obj)
+        cp.commit()
+        snap = getattr(cp._map["x"], "_snap", None)
+        if snap is not None:      # a card's path: one mirror, refilled
+            snap.staged = True
+            snap.reset()
+        cp.update_and_write()
+        before = {rel: e.payload.tobytes() if e.array is not None
+                  else e.blob
+                  for _, v, rel, e in MemFabric.instance().entries("al")
+                  if v == 1}
+        t.add_(1.0)
+        arr += 1.0
+        cp.update_and_write()
+        cp.close()
+        after = {rel: e for _, v, rel, e in
+                 MemFabric.instance().entries("al") if v == 1}
+        assert set(after) == set(before)
+        for rel, entry in after.items():
+            assert (entry.payload.tobytes() if entry.array is not None
+                    else entry.blob) == before[rel]
+            assert entry.verify("cpu")
+
+    @pytest.mark.parametrize("chain", ["mem", "mem,node,pfs"])
+    def test_a_checkpointable_opening_files_fails_by_name(self, tmp_path,
+                                                         chain):
+        env = _env(tmp_path, CRAFT_TIER_CHAIN=chain)
+        arr = np.arange(16.0)
+        cp = Checkpoint("raw", FakeComm(0, 1), env=env)
+        cp.add("raw", RawFileCp(arr))
+        cp.commit()
+        if chain == "mem":
+            with pytest.raises(CheckpointError,
+                               match="RawFileCp opened .* itself.*through "
+                                     "storage"):
+                cp.update_and_write()
+            cp.close()
+            assert cp.stats["mem_writes"] == 0
+            return
+        assert cp.update_and_write()
+        cp.close()
+        assert cp.stats["mem_writes"] == 0
+        assert cp.stats["node_writes"] == 1
+        assert cp.stats["degraded_writes"] == 1
+        out = np.zeros(16)
+        cp2 = Checkpoint("raw", FakeComm(0, 1), env=env)
+        cp2.add("raw", RawFileCp(out))
+        cp2.commit()
+        assert cp2.restart_if_needed()
+        cp2.close()
+        assert cp2.stats["restore_tier"] == "node"
+        assert np.array_equal(out, arr)
